@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch / CUDA port (patchworkpp_tpu_torch).
+
+Phases, in order; any failure raises and exits nonzero before the last line:
+
+1. print the card (nvidia-smi name, power limit) and build the CUDA fit
+   kernel from patchworkpp_tpu_torch/csrc/fit_grid.cu (build time, ptxas
+   report);
+2. make a synthetic KITTI-scale scan from --seed (64 beams over 360 deg, a
+   tilted noisy ground plane, walls, boxes, reflected noise below ground,
+   points out of range);
+3. hold the fit kernel against its plain PyTorch version on the card, on
+   that scan's tiled inputs at capacity 131072, and on a small cloud with
+   num_iter=4;
+4. drive the main path, PatchworkPP(device="cuda").estimate_ground, over
+   --frames state-chained frames; the labels must equal the CPU path's on
+   the same frames, the final adaptive state must agree, and the kernel's
+   launch count must equal the frame count;
+5. time the kernel, its plain version on the card and the frame, with CUDA
+   events after warm-up, and print the kernels JSON line;
+6. print {"ok": true, "device": {...}} as the last line.
+
+With --profile, a torch.profiler window over a few frames follows phase 5:
+host and device time per frame stage, the device's busy share and the
+kernels that take the most device time (printed, and kept in
+chiprun_out/chip_smoke.json with the other numbers).
+
+Usage: python3 chip_smoke.py [--seed 0] [--frames 20] [--profile]
+Needs one CUDA card and nvcc (CUDA toolkit); run from a checkout of the repo.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+CAPACITY = 131072
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
+# f32 operations per tiled row and pass of the fit program: distance or
+# seed test (~8), 3 shifts, 15 monomial products, 10 lane-sum adds, mask
+# and LPR bookkeeping (~4)
+FIT_OPS_PER_ROW_PASS = 40
+# kernel vs plain version on the same inputs: both run the same float
+# operations in the same order (contraction off), so they are expected to
+# agree bit for bit; the float tolerance only allows for a card whose
+# libraries round a division or square root differently
+FIT_ATOL, FIT_RTOL = 1e-5, 1e-5
+# CPU path vs card path, adaptive state floats (same reasoning)
+STATE_ATOL = 1e-5
+
+
+def make_scan(seed: int, frame: int = 0) -> np.ndarray:
+    """Synthetic 64-beam scan, float32 (N, 4) x, y, z, intensity.
+
+    The scene (ground tilt, walls, boxes) is fixed by ``seed``; ``frame``
+    moves the sensor 5 cm and turns it 1 mrad per frame and draws new noise.
+    """
+    scene = np.random.default_rng(seed)
+    rng = np.random.default_rng([seed, frame])
+    h = 1.73
+    tx, ty = scene.uniform(-0.015, 0.015, 2)
+    walls = [
+        (scene.uniform(8, 40), scene.uniform(0, 2 * np.pi),
+         scene.uniform(0, np.pi), scene.uniform(5, 15), scene.uniform(2, 6))
+        for _ in range(6)
+    ]
+    boxes = []
+    for _ in range(12):
+        r, th = scene.uniform(5, 30), scene.uniform(0, 2 * np.pi)
+        boxes.append((r * np.cos(th), r * np.sin(th), scene.uniform(1.5, 2.5),
+                      scene.uniform(0.8, 1.2), scene.uniform(-0.3, 0.2)))
+
+    ox, oy = 0.05 * frame, 0.0
+    n_az = 1960
+    elev = np.deg2rad(np.linspace(-24.8, 2.0, 64))
+    az = (np.arange(n_az) + rng.uniform()) * (2 * np.pi / n_az) + 1e-3 * frame
+    e, a = np.meshgrid(elev, az, indexing="ij")
+    dx = (np.cos(e) * np.cos(a)).ravel()
+    dy = (np.cos(e) * np.sin(a)).ravel()
+    dz = np.sin(e).ravel()
+    t = np.full(dx.shape, np.inf)
+    inten = rng.uniform(0.2, 0.6, dx.shape)
+
+    # ground z = -h + tx x + ty y
+    den = dz - tx * dx - ty * dy
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tg = (-h + tx * ox + ty * oy) / den
+    t = np.where((tg > 0) & np.isfinite(tg), tg, t)
+
+    for d, th, head, half, top in walls:
+        cx, cy = d * np.cos(th), d * np.sin(th)
+        nx, ny = np.cos(head), np.sin(head)
+        den = nx * dx + ny * dy
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tw = (nx * (cx - ox) + ny * (cy - oy)) / den
+        px, py, pz = ox + tw * dx, oy + tw * dy, tw * dz
+        along = (px - cx) * -ny + (py - cy) * nx
+        ok = (tw > 0) & (np.abs(along) < half) & (pz > -h) & (pz < top - h)
+        closer = ok & (tw < t)
+        t = np.where(closer, tw, t)
+        inten = np.where(closer, rng.uniform(0.3, 0.9, dx.shape), inten)
+
+    for cx, cy, hx, hy, top in boxes:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1x, t2x = (cx - hx - ox) / dx, (cx + hx - ox) / dx
+            t1y, t2y = (cy - hy - oy) / dy, (cy + hy - oy) / dy
+            t1z, t2z = (-h - 0.0) / dz, (top - 0.0) / dz
+        tin = np.maximum.reduce([np.minimum(t1x, t2x), np.minimum(t1y, t2y),
+                                 np.minimum(t1z, t2z)])
+        tout = np.minimum.reduce([np.maximum(t1x, t2x), np.maximum(t1y, t2y),
+                                  np.maximum(t1z, t2z)])
+        ok = (tin > 0) & (tin < tout) & (tin < t)
+        t = np.where(ok, tin, t)
+        inten = np.where(ok, rng.uniform(0.1, 0.9, dx.shape), inten)
+
+    hit = t < 120.0
+    pts = np.stack([ox + t * dx, oy + t * dy, t * dz], 1)[hit]
+    pts += rng.normal(0.0, 0.02, pts.shape)
+    rows = [np.concatenate([pts, inten[hit, None]], 1)]
+
+    def disc(n, r_lo, r_hi, z_lo, z_hi, i_lo, i_hi):
+        r = rng.uniform(r_lo, r_hi, n)
+        th = rng.uniform(0, 2 * np.pi, n)
+        return np.stack([ox + r * np.cos(th), oy + r * np.sin(th),
+                         rng.uniform(z_lo, z_hi, n), rng.uniform(i_lo, i_hi, n)], 1)
+
+    rows.append(disc(300, 3.0, 9.0, -3.8, -2.8, 0.0, 0.15))   # reflected noise
+    rows.append(disc(300, 0.3, 2.6, -1.5, 0.5, 0.0, 1.0))     # inside min_range
+    rows.append(disc(300, 81.0, 110.0, -1.0, 6.0, 0.0, 1.0))  # beyond max_range
+    cloud = np.concatenate(rows, 0).astype(np.float32)
+    if len(cloud) > CAPACITY - 1024:
+        cloud = cloud[np.sort(rng.permutation(len(cloud))[: CAPACITY - 1024])]
+    return cloud
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def compare_tables(k, ref, params, label):
+    """Kernel table vs plain table: integer columns equal, float columns
+    within FIT_ATOL/FIT_RTOL, NaNs in the same places. Returns max |err|."""
+    import torch
+
+    from patchworkpp_tpu_torch.ops.fit_kernel import OUT_GCOUNT, OUT_N
+    from patchworkpp_tpu_torch.ops.tiled_fit import out_layout
+
+    k, ref = k.double().cpu(), ref.double().cpu()
+    if k.shape != ref.shape:
+        raise AssertionError(f"{label}: shape {tuple(k.shape)} vs {tuple(ref.shape)}")
+    snap_off, carry2_off, _ = out_layout(params)
+    int_cols = [OUT_N, OUT_GCOUNT] + list(range(snap_off, carry2_off, 5))
+    if not torch.equal(k[:, int_cols], ref[:, int_cols]):
+        bad = (k[:, int_cols] != ref[:, int_cols]).nonzero()[:5].tolist()
+        raise AssertionError(f"{label}: integer columns differ at {bad}")
+    nan_k, nan_r = torch.isnan(k), torch.isnan(ref)
+    if not torch.equal(nan_k, nan_r):
+        raise AssertionError(f"{label}: NaN positions differ")
+    fin = ~nan_k
+    err = (k - ref).abs()[fin]
+    tol = (FIT_ATOL + FIT_RTOL * ref.abs())[fin]
+    if bool((err > tol).any()):
+        worst = int(((k - ref).abs().nan_to_num(0.0)).max(dim=0).values.argmax())
+        raise AssertionError(
+            f"{label}: max |err| {float(err.max())} over tolerance "
+            f"(worst column {worst}, rows differing "
+            f"{int(((k != ref) & fin).any(dim=1).sum())})"
+        )
+    bitwise = bool(torch.equal(k[fin], ref[fin]))
+    print(f"{label}: max_abs_err {float(err.max()) if err.numel() else 0.0} "
+          f"bitwise {bitwise}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def profile_frames(frame, state, xs_dev, npts, n: int = 5) -> dict:
+    """torch.profiler over n frames. Per frame: the host time of each
+    stage_* range (pipeline.py), its span on the device and the device time
+    of the kernels inside that span; the device's busy share of the window
+    (kernel and copy time over wall time); the count of device launches
+    and of device -> host copies; and the kernels with the most device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(n):
+            state, _ = frame(state, xs_dev[k], npts[k])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    host, span, spans, kernels = {}, {}, [], []
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        on_dev = e.device_type == DeviceType.CUDA
+        if e.name.startswith("stage_"):
+            if on_dev:
+                span[e.name] = span.get(e.name, 0.0) + us
+                spans.append((e.time_range.start, e.time_range.end, e.name))
+            else:
+                host[e.name] = host.get(e.name, 0.0) + us
+        elif on_dev and not getattr(e, "is_user_annotation", False):
+            kernels.append((e.time_range.start, us, e.name))
+    busy_in = {}
+    by_name = {}
+    for start, us, name in kernels:
+        for a, b, st in spans:
+            if a <= start < b:
+                busy_in[st] = busy_in.get(st, 0.0) + us
+                break
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, c + 1)
+    busy_us = sum(us for _, us, _ in kernels)
+    per = 1e3 * n  # us over n frames -> ms per frame
+    stages = {
+        k: {"host_ms": host.get(k, 0.0) / per, "device_span_ms": span.get(k, 0.0) / per,
+            "device_busy_ms": busy_in.get(k, 0.0) / per}
+        for k in sorted(set(host) | set(span))
+    }
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    out = {
+        "frames": n, "wall_ms_per_frame": wall_us / per,
+        "device_busy_ms_per_frame": busy_us / per,
+        "device_busy_share": busy_us / wall_us,
+        "device_launches_per_frame": len(kernels) / n,
+        "dtoh_copies_per_frame": sum("DtoH" in k for _, _, k in kernels) / n,
+        "stages": stages,
+        "top_kernels": [{"name": k, "device_ms_per_frame": t / per,
+                         "launches_per_frame": c / n} for k, (t, c) in top],
+    }
+    print(f"profile ({n} frames, profiler on): wall {out['wall_ms_per_frame']:.3f} ms/frame, "
+          f"device busy {out['device_busy_ms_per_frame']:.3f} ms/frame "
+          f"(share {out['device_busy_share']:.3f}), "
+          f"{out['device_launches_per_frame']:g} device launches and "
+          f"{out['dtoh_copies_per_frame']:g} device->host copies per frame")
+    for k, v in stages.items():
+        print(f"  {k}: host {v['host_ms']:.3f} ms, device span {v['device_span_ms']:.3f} ms, "
+              f"device busy {v['device_busy_ms']:.3f} ms per frame")
+    for t in out["top_kernels"]:
+        print(f"  {t['device_ms_per_frame']:.4f} ms/frame  x{t['launches_per_frame']:g}  "
+              f"{t['name'][:90]}")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler breakdown of the frame")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this test "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import patchworkpp_tpu_torch
+    from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
+    from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
+    from patchworkpp_tpu_torch.pipeline import make_frame_fn
+
+    pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(patchworkpp_tpu_torch.__file__)))
+    if pkg_dir != here:
+        raise RuntimeError(f"patchworkpp_tpu_torch imported from {pkg_dir}, not this checkout")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+
+    # ---- 1. card and build
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    fkg.build()
+    build_s = time.perf_counter() - t0
+    print(f"fit kernel build: {build_s:.2f} s")
+    print(fkg.build_log().strip())
+
+    # ---- 2. scan
+    p = Params()
+    scans = [make_scan(args.seed, f) for f in range(args.frames)]
+    print(f"scan: {len(scans[0])} points, frames {args.frames}")
+
+    # ---- 3. kernel vs plain on the card, at the main path's shapes
+    frame = make_frame_fn(p, device=dev)
+    x0 = torch.zeros((CAPACITY, 4), device=dev)
+    x0[: len(scans[0])] = torch.from_numpy(scans[0]).to(dev)
+    fi = frame.fit_inputs(init_state(p, dev), x0, len(scans[0]))
+    fit_args = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
+                fi.gates, fi.consts)
+    k_out = fkg.fused_fit_grid(*fit_args, p)
+    torch.cuda.synchronize()
+    cpu_plain = tiled_fit(*(a.cpu() for a in fit_args[:7]), fi.consts[0].cpu(), p)
+    compare_tables(k_out, cpu_plain, p, "fit kernel vs plain (cpu)")
+    plain = tiled_fit(*fit_args[:7], fi.consts[0], p)
+    max_err = compare_tables(k_out, plain, p, "fit kernel vs plain (card)")
+
+    tiles = (fi.pad_start[1:] - fi.pad_start[:-1]) // 128
+    proc_tiles = int(tiles[fi.processed].sum())
+    print(f"tiled rows {fi.xs.numel()}, tiles {fi.xs.shape[0]}, processed "
+          f"patches {int(fi.processed.sum())} over {proc_tiles} tiles, "
+          f"largest patch {int(tiles.max())} tiles")
+
+    p4 = Params(num_iter=4)
+    small = scans[0][::16]
+    xs4 = torch.zeros((8192, 4), device=dev)
+    xs4[: len(small)] = torch.from_numpy(small).to(dev)
+    fi4 = make_frame_fn(p4, device=dev).fit_inputs(init_state(p4, dev), xs4, len(small))
+    a4 = (fi4.xs, fi4.ys, fi4.zs, fi4.valid_f, fi4.tile_patch, fi4.pad_start, fi4.gates)
+    compare_tables(fkg.fused_fit_grid(*a4, fi4.consts, p4),
+                   tiled_fit(*a4, fi4.consts[0], p4), p4, "fit kernel num_iter=4")
+
+    # ---- 4. main path on the card vs the CPU path
+    gpu = PatchworkPP(p, capacity=CAPACITY, device="cuda")
+    fkg.fused_fit_grid.launches = 0
+    gpu_res = [gpu.estimate_ground(s) for s in scans]
+    launches = fkg.fused_fit_grid.launches
+    if launches != args.frames:
+        raise AssertionError(f"fit kernel launched {launches} times in "
+                             f"{args.frames} frames")
+    cpu = PatchworkPP(p, capacity=CAPACITY, device="cpu")
+    for i, s in enumerate(scans):
+        r = cpu.estimate_ground(s)
+        g = gpu_res[i]
+        if not np.array_equal(g.ground_mask, r.ground_mask):
+            diff = int((g.ground_mask != r.ground_mask).sum())
+            raise AssertionError(f"frame {i}: {diff} labels differ card vs cpu")
+        if g.ground_mask.shape != (len(s),) or not 0 < g.ground_mask.sum() < len(s):
+            raise AssertionError(f"frame {i}: implausible labels")
+    st_g, st_c = gpu.state.to_numpy(), cpu.state.to_numpy()
+    for key in st_c:
+        if st_c[key].dtype.kind == "i":
+            np.testing.assert_array_equal(st_g[key], st_c[key], err_msg=key)
+        else:
+            np.testing.assert_allclose(st_g[key], st_c[key], rtol=0,
+                                       atol=STATE_ATOL, err_msg=key)
+    print(f"main path: {args.frames} frames, labels equal to the cpu path, "
+          f"ground {[int(r.ground_mask.sum()) for r in gpu_res[:3]]}..., "
+          f"sensor_height {gpu.sensor_height:.6f}, kernel launches {launches}")
+
+    # ---- 5. timing
+    kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
+    plain_ms = cuda_ms(lambda: tiled_fit(*fit_args[:7], fi.consts[0], p), reps=5)
+    xs_dev = []
+    for s in scans:
+        x = torch.zeros((CAPACITY, 4), device=dev)
+        x[: len(s)] = torch.from_numpy(s).to(dev)
+        xs_dev.append(x)
+    npts = [len(s) for s in scans]
+    state = init_state(p, dev)
+    for k in range(min(3, len(scans))):  # warm-up
+        state, _ = frame(state, xs_dev[k], npts[k])
+    per_frame = []
+    for k in range(len(scans)):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = frame(state, xs_dev[k], npts[k])
+        b.record()
+        torch.cuda.synchronize()
+        per_frame.append(a.elapsed_time(b))
+    frame_ms = float(np.median(per_frame))
+    host_ms = float(np.median([r.time_taken_s for r in gpu_res[1:]]) * 1e3)
+
+    npasses, kind = fkg._pass_config(p)[:2]
+    rows = 128 * proc_tiles
+    # what this design moves: every walk over a patch's tiles reads x, y, z
+    # and active (a SEEDFIT pass walks twice), plus the first write of active
+    walks = npasses + int((kind == fkg.K_SEEDFIT).sum())
+    design_bytes = rows * (16 * walks + 4)
+    spad, cols = k_out.shape
+    nbytes = rows * 16 + 4 * (spad + 1) + 32 * spad + 32 + 4 * spad * cols
+    ops = rows * npasses * FIT_OPS_PER_ROW_PASS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"fit kernel {kernel_ms:.4f} ms, plain on card {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.5f} ms ({nbytes} B, {ops} ops); the design's "
+          f"{walks} walks move {design_bytes} B ({design_bytes / H100_BYTES_PER_S * 1e3:.5f} "
+          f"ms at the HBM rate); frame median {frame_ms:.3f} ms (CUDA events), "
+          f"{host_ms:.3f} ms host median incl. copies")
+
+    kernels = {"kernels": [{
+        "name": "fit_grid",
+        "route": "cuda",
+        "source": "patchworkpp_tpu_torch/csrc/fit_grid.cu",
+        "replaces": "patchworkpp_tpu/ops/pallas/fit_kernel_grid.py:318",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }]}
+    record = {
+        "card": card, "build_s": build_s, "frame_ms": frame_ms,
+        "host_frame_ms": host_ms, "points": len(scans[0]),
+        "tiles": int(fi.xs.shape[0]), "processed_tiles": proc_tiles,
+        "largest_patch_tiles": int(tiles.max()), "frame_ms_each": per_frame,
+        "fit_design_bytes": design_bytes, **kernels,
+    }
+    if args.profile:
+        record["profile"] = profile_frames(frame, state, xs_dev, npts, n=min(5, len(scans)))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+
+    print(card)
+    print(json.dumps(kernels))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

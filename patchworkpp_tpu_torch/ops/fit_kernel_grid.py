@@ -1,0 +1,207 @@
+"""The fit kernel: the per-patch R-VPF/R-GPF pass program as one CUDA launch.
+
+Replaces the TPU's Pallas grid kernel
+``patchworkpp_tpu/ops/pallas/fit_kernel_grid.py:fused_fit_grid`` (whose
+program the JAX engine runs as XLA ops in ``ops/tiled_fit.py``). The source
+is ``csrc/fit_grid.cu``; it is compiled with nvcc for sm_90a at the first
+call on a CUDA tensor, into ``build/`` beside this package, and bound with
+ctypes. On a CPU tensor the wrapper runs the plain version
+(``ops/tiled_fit.py:tiled_fit``); on a CUDA tensor it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from patchworkpp_tpu_torch.ops import f32
+from patchworkpp_tpu_torch.ops.fit_kernel import build_pass_program
+from patchworkpp_tpu_torch.params import Params
+
+K_SEEDFIT, K_FITDIST = 0, 1
+LANE = 128
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "fit_grid.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _pass_config(p: Params):
+    """Fuse each (count, lprsum, fitseed) triple of the canonical pass
+    program into one SEEDFIT pass. Returns (npasses, kind, peel, snap,
+    gate_alive, final, th) with one entry per pass."""
+    passes = build_pass_program(p)
+    fused = []
+    i = 0
+    while i < len(passes):
+        ps = passes[i]
+        if ps.kind == "count":
+            assert passes[i + 1].kind == "lprsum"
+            seed = passes[i + 2]
+            assert seed.kind == "fitseed"
+            fused.append(
+                (K_SEEDFIT, ps.peel_snap, seed.snap_slot,
+                 int(seed.gate_alive), 0, seed.th)
+            )
+            i += 3
+        else:
+            assert ps.kind == "fitdist"
+            fused.append(
+                (K_FITDIST, -1, -1, int(ps.gate_alive), int(ps.is_final), ps.th)
+            )
+            i += 1
+    kind, peel, snap, gate_alive, final, th = map(np.array, zip(*fused))
+    return (
+        len(fused),
+        kind.astype(np.int32), peel.astype(np.int32), snap.astype(np.int32),
+        gate_alive.astype(np.int32), final.astype(np.int32),
+        th.astype(np.float32),
+    )
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the fit kernel is built from "
+                       f"{SOURCE} at its first CUDA call")
+
+
+@functools.lru_cache(maxsize=1)
+def build() -> ctypes.CDLL:
+    """Compile csrc/fit_grid.cu (once per source content) and load it.
+
+    The library name carries a hash of the source, so an edited kernel is
+    never served from a stale build; nvcc's output (the ``-Xptxas -v``
+    register and spill report) is kept beside it as a ``.log``."""
+    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    so = BUILD_DIR / f"libfit_grid_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
+        )
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {SOURCE} (exit {proc.returncode}):\n"
+                f"{proc.stderr}"
+            )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.ppk_fit_grid
+    ptr, i32, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # xs ys zs valid pad gates consts prog
+        i32,                                      # npasses
+        ptr, ptr,                                 # active (scratch), out
+        i32, i32, i32, i32, i32, i32,             # nt spad out_cols snap carry2 num_lpr
+        flt, flt,                                 # th_dist_v uprightness_thr
+        ptr,                                      # stream
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def build_log() -> str:
+    """nvcc's output for the current source (after :func:`build`)."""
+    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    log = BUILD_DIR / f"libfit_grid_{tag}.log"
+    return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=8)
+def _program(params: Params, device: torch.device) -> torch.Tensor:
+    """The pass program as one (6, npasses) int32 device tensor: kind, peel
+    slot, snapshot slot, gate_alive, final, and the threshold's f32 bits."""
+    npasses, kind, peel, snap, gate_alive, final, th = _pass_config(params)
+    rows = np.stack([kind, peel, snap, gate_alive, final, th.view(np.int32)])
+    return torch.as_tensor(rows, device=device).contiguous()
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def fused_fit_grid(
+    xs, ys, zs, valid_f, tile_patch, pad_start, gates, consts, params: Params,
+):
+    """Per-patch fit table of the tiled cloud.
+
+    Args:
+      xs, ys, zs, valid_f: (NT, 128) f32 tiled point data.
+      tile_patch: (NT,) or (NT, 1) int32 patch of each tile (read by the
+        plain version; the kernel finds each patch's tiles from pad_start).
+      pad_start: (S+1,) int32 tile-aligned run starts.
+      gates: (S, 8) f32 [processed, shift_x, shift_y, shift_z, zone0, 0..].
+      consts: (8,) f32 [margin_thr, 0..].
+
+    Returns:
+      (S, out_cols) f32 table (``tiled_fit.out_layout``).
+    """
+    from patchworkpp_tpu_torch.ops.tiled_fit import out_layout, tiled_fit
+
+    if xs.device.type == "cpu":
+        return tiled_fit(
+            xs, ys, zs, valid_f, tile_patch, pad_start, gates, consts[0], params
+        )
+    if xs.device.type != "cuda":
+        raise ValueError(f"fit kernel runs on CUDA or CPU tensors, not {xs.device}")
+
+    dev = xs.device
+    nt = xs.shape[0]
+    spad = gates.shape[0]
+    for name, t in (("xs", xs), ("ys", ys), ("zs", zs), ("valid_f", valid_f)):
+        _check(name, t, torch.float32, (nt, LANE), dev)
+    _check("pad_start", pad_start, torch.int32, (spad + 1,), dev)
+    _check("gates", gates, torch.float32, (spad, 8), dev)
+    _check("consts", consts, torch.float32, (8,), dev)
+
+    lib = build()
+    prog = _program(params, dev)
+    snap_off, carry2_off, out_cols = out_layout(params)
+    out = torch.empty((spad, out_cols), dtype=torch.float32, device=dev)
+    active = torch.empty((nt, LANE), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ppk_fit_grid(
+        xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), valid_f.data_ptr(),
+        pad_start.data_ptr(), gates.data_ptr(), consts.data_ptr(),
+        prog.data_ptr(), prog.shape[1],
+        active.data_ptr(), out.data_ptr(),
+        nt, spad, out_cols, snap_off, carry2_off, params.num_lpr,
+        f32(params.th_dist_v), f32(params.uprightness_thr),
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fit kernel launch failed: CUDA error {rc}")
+    fused_fit_grid.launches += 1
+    return out
+
+
+# Launches of the CUDA kernel (plain-version calls do not count).
+fused_fit_grid.launches = 0

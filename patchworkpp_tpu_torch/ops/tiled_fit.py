@@ -1,0 +1,247 @@
+"""The fit pass program on the tiled layout, in plain PyTorch: the plain
+version of the CUDA fit kernel (csrc/fit_grid.cu, wrapped by
+ops/fit_kernel_grid.py) and the engine's CPU path.
+
+Port of ``patchworkpp_tpu/ops/tiled_fit.py``, itself the TPU grid kernel
+``fused_fit_grid``'s program written out as XLA ops. Per patch and pass
+(reference seed selection patchworkpp.cpp:77-149, R-VPF/R-GPF loop
+:467-549):
+
+  SEEDFIT  peel by the previous vertical snapshot -> zone-0 margin
+           eligibility -> LPR over the lowest num_lpr eligible z (exclusive
+           tile prefix + in-tile lane rank) -> seed mask -> moments -> fit
+           -> vertical snapshot
+  FITDIST  signed-distance mask -> moments -> fit (the last pass saves the
+           plane it tested against and g_count)
+
+Reduction order is part of the contract. Each tile's 128 lanes are summed
+in the fixed pairwise order of ``ops.tree_sum``; each per-tile sum is split
+into three round-to-nearest bf16 parts; the parts are accumulated in f32
+over the patch's tiles in tile order and re-added as (hi + mid) + lo, the
+JAX grid kernel's movement profile (a 1-ulp covariance difference once
+flipped an uprightness decision, see _rne_bf16_split3). The CUDA kernel
+does exactly these operations, so the two agree bit for bit on any device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from patchworkpp_tpu_torch.ops import f32, tree_sum
+from patchworkpp_tpu_torch.ops.fit_kernel import (
+    OUT_CARRY2,
+    OUT_COLS,
+    OUT_SNAP,
+    PLANE_COLS,
+    _lane_prefix_exclusive,
+    plane_row_from_moments,
+)
+from patchworkpp_tpu_torch.ops.fit_kernel_grid import (
+    K_FITDIST,
+    K_SEEDFIT,
+    _pass_config,
+)
+from patchworkpp_tpu_torch.ops.tiled import TILE
+from patchworkpp_tpu_torch.params import Params
+
+
+def out_layout(params: Params):
+    """(snap_off, carry2_off, out_cols) of the per-patch result table: the
+    canonical 48 columns for num_iter <= 3, extended by 5 columns per extra
+    R-VPF snapshot beyond that."""
+    nsnap = params.num_iter if params.enable_RVPF else 0
+    if nsnap <= 3:
+        return OUT_SNAP, OUT_CARRY2, OUT_COLS
+    carry2 = OUT_SNAP + 5 * nsnap
+    return OUT_SNAP, carry2, carry2 + 4
+
+
+def _rne_part(v: torch.Tensor):
+    """(bf16_rne(v) as f32, v - that): the top 16 bits after rounding the
+    f32 pattern to nearest-even, in integer arithmetic."""
+    bits = v.contiguous().view(torch.int32)
+    lsb = (bits >> 16) & 1
+    kept = ((bits + 0x7FFF + lsb) & -65536).view(torch.float32)
+    return kept, v - kept
+
+
+def _rne_bf16_split3(x: torch.Tensor):
+    """f32 -> three bf16-representable f32 parts that sum back to x exactly
+    (the third residual fits in 8 significand bits)."""
+    hi, r1 = _rne_part(x)
+    mid, r2 = _rne_part(r1)
+    lo, _ = _rne_part(r2)
+    return hi, mid, lo
+
+
+def tile_ranges(pad_start: torch.Tensor, nt: int):
+    """Gather map from patches to their tiles, in tile order.
+
+    Returns (idx, ok), both (S, T) with T the largest tile count of a patch:
+    ``idx[s, j]`` is patch s's j-th tile, valid where ``ok[s, j]``. Patch
+    s owns tiles ``pad_start[s]/128 .. pad_start[s+1]/128``; the sentinel
+    tiles past ``pad_start[S]`` carry no active point and are left out."""
+    ps = pad_start.to(torch.int64) // TILE
+    ts, cnt = ps[:-1], ps[1:] - ps[:-1]
+    tmax = int(cnt.max()) if cnt.numel() else 0
+    j = torch.arange(tmax, device=pad_start.device)
+    idx = torch.clamp_max(ts[:, None] + j[None, :], max(nt - 1, 0))
+    return idx, j[None, :] < cnt[:, None]
+
+
+def _reduce_tiles_split3(v: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
+    """(NT, C) per-tile sums -> (S, C) per-patch sums: rne-bf16x3 parts,
+    each accumulated in f32 over the patch's tiles in tile order, re-added
+    as (hi + mid) + lo."""
+    c = v.shape[1]
+    parts = torch.cat(_rne_bf16_split3(v), dim=1)  # (NT, 3C)
+    g = torch.where(ok[..., None], parts[idx], torch.zeros((), device=v.device))
+    acc = torch.zeros((idx.shape[0], 3 * c), dtype=v.dtype, device=v.device)
+    for j in range(idx.shape[1]):
+        acc = acc + g[:, j]
+    return (acc[:, :c] + acc[:, c:2 * c]) + acc[:, 2 * c:]
+
+
+def _tile_moments(xs, ys, zs, sx, sy, sz, mask):
+    """(NT, 128) masked monomials -> (NT, 10) per-tile sums, in the kernels'
+    monomial order ((qx * qx) * mask, not (qx * mask) ** 2)."""
+    qx = xs - sx
+    qy = ys - sy
+    qz = zs - sz
+    return tree_sum(torch.stack(
+        [
+            mask, qx * mask, qy * mask, qz * mask,
+            qx * qx * mask, qx * qy * mask, qx * qz * mask,
+            qy * qy * mask, qy * qz * mask, qz * qz * mask,
+        ],
+        dim=1,
+    ))
+
+
+def tiled_fit(
+    xs, ys, zs, valid_f, tile_patch, pad_start, gates_p, margin_thr,
+    params: Params,
+):
+    """Run the fit program on the tiled layout.
+
+    Args:
+      xs, ys, zs, valid_f: (NT, 128) f32 tiled point data.
+      tile_patch: (NT,) or (NT, 1) int patch owning each tile (sentinels
+        clamped to S-1).
+      pad_start: (S+1,) int32 tile-aligned run starts (ops/tiled.py).
+      gates_p: (S, 8) f32 [processed, shift_x, shift_y, shift_z, zone0, 0..].
+      margin_thr: () f32 zone-0 seed margin (margin * sensor_height).
+
+    Returns:
+      (S, out_cols) f32 per-patch result table (fit_kernel OUT_* layout,
+      extended by out_layout).
+    """
+    p = params
+    nt = xs.shape[0]
+    spad = gates_p.shape[0]
+    dev = xs.device
+    tpc = tile_patch.reshape(-1).to(torch.int64)
+    npasses, kind, peel, snap, gate_alive, final, th_arr = _pass_config(p)
+    idx, ok = tile_ranges(pad_start, nt)
+
+    proc_p = gates_p[:, 0]
+    zone0_p = gates_p[:, 4] > 0.5
+    gt = gates_p[tpc]
+    proc_t = gt[:, 0:1]
+    sx, sy, sz = gt[:, 1:2], gt[:, 2:3], gt[:, 3:4]
+    zone0_t = gt[:, 4:5] > 0.5
+
+    # first tile of each tile's patch run, for the exclusive tile prefix
+    first = (pad_start.to(torch.int64) // TILE)[tpc]
+
+    active = valid_f * proc_t
+    plane = torch.zeros((spad, PLANE_COLS), dtype=torch.float32, device=dev)
+    alive = proc_p
+    snap_off, carry2_off, out_cols = out_layout(p)
+    nsnap = (carry2_off - snap_off) // 5
+    snaps = [torch.zeros((spad, 5), device=dev) for _ in range(nsnap)]
+    g_count = torch.zeros(spad, device=dev)
+    final_tab = torch.zeros((spad, 4), device=dev)
+    one = torch.ones((), device=dev)
+    zero = torch.zeros((), device=dev)
+
+    for i in range(npasses):
+        gate = alive if gate_alive[i] else proc_p
+        th = float(th_arr[i])
+
+        if kind[i] == K_SEEDFIT:
+            if peel[i] >= 0:
+                snap_t = snaps[int(peel[i])][tpc]
+                dist = (
+                    xs * snap_t[:, 1:2] + ys * snap_t[:, 2:3]
+                    + zs * snap_t[:, 3:4] + snap_t[:, 4:5]
+                )
+                hit = (
+                    (snap_t[:, 0:1] > 0.5) & (torch.abs(dist) < f32(p.th_dist_v))
+                ).to(torch.float32)
+                active = active * (1.0 - hit)
+
+            elig = active * torch.where(zone0_t & (zs < margin_thr), zero, one)
+            e = (elig > 0.5).to(torch.int32)
+            m_t = e.sum(dim=1, dtype=torch.int32)
+            excl = torch.cumsum(m_t, 0, dtype=torch.int32) - m_t
+            prior = excl - excl[first]
+            quota = torch.clamp_min(p.num_lpr - prior, 0)
+            rank = _lane_prefix_exclusive(e)
+            take = elig * (rank < quota[:, None]).to(torch.float32)
+            per = torch.stack([tree_sum(zs * take), tree_sum(take)], dim=1)
+            tot = _reduce_tiles_split3(per, idx, ok)
+            cnt = tot[:, 1]
+            lpr_p = torch.where(cnt > 0, tot[:, 0] / torch.clamp_min(cnt, 1.0), zero)
+            mask = (
+                active
+                * (zs < lpr_p[tpc][:, None] + th).to(torch.float32)
+                * (gate[tpc][:, None] > 0.5).to(torch.float32)
+            )
+        else:  # K_FITDIST
+            if final[i]:
+                final_tab = plane[:, 0:4]
+            pl_t = plane[tpc, 0:4]
+            dist = (
+                xs * pl_t[:, 0:1] + ys * pl_t[:, 1:2]
+                + zs * pl_t[:, 2:3] + pl_t[:, 3:4]
+            )
+            mask = active * (dist < th).to(torch.float32)
+
+        momp = _reduce_tiles_split3(
+            _tile_moments(xs, ys, zs, sx, sy, sz, mask), idx, ok
+        )
+        if kind[i] == K_FITDIST and final[i]:
+            g_count = momp[:, 0]
+
+        row = plane_row_from_moments(
+            momp, gates_p[:, 1], gates_p[:, 2], gates_p[:, 3]
+        )
+        upd = (gate > 0.5) & (momp[:, 0] > 0)
+        plane = torch.where(upd[:, None], row, plane)
+
+        if kind[i] == K_SEEDFIT and snap[i] >= 0:
+            vert = (
+                (alive > 0.5) & zone0_p & (plane[:, 2] < f32(p.uprightness_thr))
+            ).to(torch.float32)
+            snaps[int(snap[i])] = torch.cat([vert[:, None], plane[:, 0:4]], dim=1)
+            alive = vert
+
+    # [normal(3), d, mean(3), n, gcount, cov(6), pad, snaps(5*nsnap),
+    #  carry2(4), pad]
+    out = torch.cat(
+        [
+            plane[:, 0:4],
+            plane[:, 11:14],
+            plane[:, 4:5],
+            g_count[:, None],
+            plane[:, 5:11],
+            torch.zeros((spad, 1), device=dev),
+            *snaps,
+            final_tab,
+            torch.zeros((spad, out_cols - (carry2_off + 4)), device=dev),
+        ],
+        dim=1,
+    )
+    assert out.shape == (spad, out_cols)
+    return out

@@ -1,0 +1,540 @@
+"""The ground-segmentation frame step (port of ``patchworkpp_tpu/pipeline.py``,
+tiled engine; reference estimateGround, cpp/patchworkpp/src/patchworkpp.cpp:151-336).
+
+A frame is: sanitize -> RNR + CZM binning -> (patch, z) sort into
+single-patch tiles -> the fit pass program (ops/fit_kernel_grid.py: the CUDA
+kernel on the card, its plain version on the CPU) -> eigenvalues -> A-GLE,
+TGR, the adaptive-state update, and the labels replayed in original point
+order from small per-patch plane tables.
+
+Reductions whose order the backend would choose (the adaptive buffers'
+mean and stdev, the per-patch heading) are written in a fixed order, so
+that a frame gives the same bits on the CPU and on the card.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from patchworkpp_tpu_torch.ops import div, f32, sqrt, tree_sum
+from patchworkpp_tpu_torch.ops.binning import bin_points, factored_patch_counts
+from patchworkpp_tpu_torch.ops.eigen3 import eigh3x3_descending
+from patchworkpp_tpu_torch.ops.fit_kernel import (
+    OUT_COV,
+    OUT_GCOUNT,
+    OUT_MEAN,
+    OUT_NORMAL,
+)
+from patchworkpp_tpu_torch.ops.fit_kernel_grid import fused_fit_grid
+from patchworkpp_tpu_torch.ops.tiled import TILE, build_tiled
+from patchworkpp_tpu_torch.ops.tiled_fit import out_layout
+from patchworkpp_tpu_torch.params import CZMGeometry, Params
+from patchworkpp_tpu_torch.state import BUF_CAP, AdaptiveState
+
+_F32_MAX = float(np.finfo(np.float32).max)
+_COORD_SANE = f32(1e9)  # meters; LiDAR returns are < a few hundred
+
+# Row-block size of the original-order label replay: bounds the (rows, C)
+# gathered label table the replay materializes. Module-level so tests can
+# shrink it to exercise the multi-block path on small clouds.
+_REPLAY_BLOCK = 65536
+
+
+class FrameResult(NamedTuple):
+    """Per-frame outputs (original point order)."""
+
+    ground_mask: torch.Tensor      # (P,) bool; padding rows are False
+    num_ground: torch.Tensor       # () int32
+    patch_mean: torch.Tensor       # (NP, 3) final per-patch plane centroid
+    patch_normal: torch.Tensor     # (NP, 3) final per-patch plane normal
+    patch_svals: torch.Tensor      # (NP, 3) eigenvalues, descending
+    patch_processed: torch.Tensor  # (NP,) bool: had >= num_min_pts points
+
+
+class FitInputs(NamedTuple):
+    """One frame's fit-kernel inputs and what the frame's tail reads."""
+
+    xs: torch.Tensor          # (NT, 128) f32 tiled x
+    ys: torch.Tensor          # (NT, 128) f32
+    zs: torch.Tensor          # (NT, 128) f32
+    valid_f: torch.Tensor     # (NT, 128) f32 1 = real point
+    tile_patch: torch.Tensor  # (NT,) int32, sentinels clamped to S-1
+    pad_start: torch.Tensor   # (S+1,) int32
+    gates: torch.Tensor       # (S, 8) f32
+    consts: torch.Tensor      # (8,) f32 [margin_thr, 0..]
+    counts: torch.Tensor      # (S,) f32 points per patch
+    processed: torch.Tensor   # (S,) bool
+    points: torch.Tensor      # (P, 4) sanitized cloud, original order
+    patch_id: torch.Tensor    # (P,) int32 patch of each point
+
+
+class StaticTables(NamedTuple):
+    """Host-precomputed per-patch constants over the spad-wide patch space."""
+
+    zone: np.ndarray        # (S,) int32 zone of each patch
+    cring: np.ndarray       # (S,) int32 concentric ring; pad -> num rings
+    shift: np.ndarray       # (S, 3) f32 static centering offset per patch
+    ring_slices: Tuple[Tuple[int, int], ...]  # (start, stop) per ring of interest
+    max_ring_patches: int   # pad width for ring-of-interest arrays
+    num_zone0: int          # patches in zone 0 (flat ids [0, num_zone0))
+
+
+def build_static_tables(params: Params, geom: CZMGeometry) -> StaticTables:
+    """Per-patch zone, concentric ring and centering shift (any CZM)."""
+    p = params
+    npz = geom.num_patches
+    spad = geom.spad
+    if npz > 65536:
+        raise ValueError(
+            f"CZM has {npz} patches; refusing configs past 65536"
+        )
+    zone = np.full(spad, p.num_zones - 1, np.int32)
+    zone[:npz] = geom.patch_zone()
+    cring = np.full(spad, geom.num_concentric_rings, np.int32)
+    cring[:npz] = geom.patch_concentric_ring()
+
+    # The patch's geometric center at the nominal ground height: keeps the
+    # f32 covariance well conditioned; any fixed offset is neutral.
+    shift = np.zeros((spad, 3), np.float32)
+    sector = geom.patch_sector()
+    lo = np.asarray(geom.min_ranges)
+    for pid in range(npz):
+        k = int(zone[pid])
+        ring_in_zone = (pid - geom.zone_patch_offset[k]) // p.num_sectors_each_zone[k]
+        r_mid = lo[k] + (ring_in_zone + 0.5) * geom.ring_sizes[k]
+        th_mid = (sector[pid] + 0.5) * geom.sector_sizes[k]
+        shift[pid] = [r_mid * np.cos(th_mid), r_mid * np.sin(th_mid), -p.sensor_height]
+
+    ring_slices = []
+    for ci in range(p.num_rings_of_interest):
+        sel = np.flatnonzero(cring[:npz] == ci)
+        ring_slices.append((int(sel[0]), int(sel[-1]) + 1))
+    max_rp = max(b - a for a, b in ring_slices)
+    return StaticTables(
+        zone=zone,
+        cring=cring,
+        shift=shift,
+        ring_slices=tuple(ring_slices),
+        max_ring_patches=max_rp,
+        num_zone0=p.num_rings_each_zone[0] * p.num_sectors_each_zone[0],
+    )
+
+
+def _sanitize_nonfinite(points: torch.Tensor) -> torch.Tensor:
+    """Zero rows whose coordinates are non-finite or absurdly large: they
+    become out-of-range (r = 0) and go to nonground, out of every statistic
+    (the JAX package's deliberate deviation from the reference, kept so
+    that the two engines see the same cloud)."""
+    ok = (torch.abs(points[:, :3]) < _COORD_SANE).all(dim=1)
+    return torch.where(ok[:, None], points, torch.zeros((), device=points.device))
+
+
+def _masked_mean_stdev_rows(vals: torch.Tensor, mask: torch.Tensor):
+    """Row-batched reference calc_mean_stdev (:557-566) over the last axis:
+    rows with n <= 1 give zeros, else the sample stdev (n - 1)."""
+    m = mask.to(torch.float32)
+    n = tree_sum(m)
+    vals = torch.where(mask, vals, torch.zeros((), device=vals.device))
+    mean = tree_sum(vals) / torch.clamp_min(n, 1.0)
+    d = vals - mean[..., None]
+    var = tree_sum(d * d * m) / torch.clamp_min(n - 1.0, 1.0)
+    ok = n > 1
+    z = torch.zeros_like(mean)
+    return torch.where(ok, mean, z), torch.where(ok, sqrt(var), z), n
+
+
+def _compact_rows(vals: torch.Tensor, acc_mask: torch.Tensor) -> torch.Tensor:
+    """out[r, j] = the j-th mask-true value of row r (zeros beyond); exact,
+    every output slot has at most one nonzero addend."""
+    m = acc_mask.to(torch.float32)
+    pos = torch.cumsum(m, dim=1) - m
+    j = torch.arange(vals.shape[1], device=vals.device, dtype=pos.dtype)
+    sel = (acc_mask[:, :, None] & (pos[:, :, None] == j)).to(torch.float32)
+    vals = torch.where(acc_mask, vals, torch.zeros((), device=vals.device))
+    return torch.sum(vals[:, :, None] * sel, dim=1)
+
+
+def _write_at(buf: torch.Tensor, cnt: torch.Tensor, vals_c: torch.Tensor) -> torch.Tensor:
+    """out[r] = buf[r] with vals_c[r] added from offset cnt[r] on (relies on
+    buf being zero past cnt; writes past the capacity are dropped)."""
+    cap = buf.shape[1]
+    w = vals_c.shape[1]
+    dev = buf.device
+    rel = torch.arange(cap, device=dev)[None, :, None] - cnt[:, None, None]
+    sel = (rel == torch.arange(w, device=dev)[None, None, :]).to(torch.float32)
+    return buf + torch.sum(vals_c[:, None, :] * sel, dim=2)
+
+
+def _append_rings(buf, cnt, vals_c, k, max_storage, do_trim, w):
+    """Batched FIFO append + conditional trim of the (R,) ring buffers.
+
+    Returns (buf_pre, buf_post, cnt_new, n_total): the thresholds are
+    computed on buf_pre over n_total entries (the reference trims after
+    computing them, patchworkpp.cpp:354-355, :372-373); buf_post is the
+    trimmed carry, zero past its count. A ring that does not trim is still
+    cut just below the capacity (the reference's vector has none)."""
+    cap = buf.shape[1]
+    buf_pre = _write_at(buf, cnt, vals_c)
+    n_total = cnt + k
+    excess = torch.where(
+        do_trim,
+        torch.clamp_min(n_total - max_storage, 0),
+        torch.clamp_min(n_total - (cap - w), 0),
+    )
+    cnt_new = n_total - excess
+    iota = torch.arange(cap, device=buf.device)
+    src = (iota[None, :] + excess[:, None].to(torch.int64)) % cap
+    rolled = torch.gather(buf_pre, 1, src)
+    buf_post = torch.where(
+        iota[None, :] < cnt_new[:, None], rolled, torch.zeros((), device=buf.device)
+    )
+    return buf_pre, buf_post, cnt_new.to(torch.int32), n_total
+
+
+def _update_state(
+    state: AdaptiveState,
+    p: Params,
+    ring_acc: torch.Tensor,
+    ring_elev: torch.Tensor,
+    ring_flat: torch.Tensor,
+) -> AdaptiveState:
+    """End-of-frame adaptation (reference update_elevation_thr /
+    update_flatness_thr :338-375): the ring-0 sensor height calibration
+    and the flatness ``break`` freeze, all rings as one batched op set."""
+    n_roi = p.num_rings_of_interest
+    cap = state.elev_buf.shape[1]
+    w = ring_elev.shape[1]
+    dev = ring_acc.device
+    iota = torch.arange(cap, device=dev)
+
+    k = torch.sum(ring_acc, dim=1).to(torch.int32)
+    elev_c = _compact_rows(ring_elev, ring_acc)
+    flat_c = _compact_rows(ring_flat, ring_acc)
+
+    # elevation: every ring independent ('continue' on empty)
+    buf_pre_e, buf_post_e, cnt_new_e, n_tot_e = _append_rings(
+        state.elev_buf[:n_roi], state.elev_cnt[:n_roi], elev_c, k,
+        p.max_elevation_storage,
+        do_trim=torch.ones(n_roi, dtype=torch.bool, device=dev), w=w,
+    )
+    mean_e, stdev_e, _ = _masked_mean_stdev_rows(
+        buf_pre_e, iota[None, :] < n_tot_e[:, None]
+    )
+    # ring 0 keeps mean + 3 stdev, the others mean + 2 stdev
+    factor = torch.where(torch.arange(n_roi, device=dev) == 0, 3.0, 2.0)
+    elev_thr = state.elevation_thr.clone()
+    elev_thr[:n_roi] = torch.where(
+        n_tot_e > 0, mean_e + factor * stdev_e, state.elevation_thr[:n_roi]
+    )
+    sh = torch.where(n_tot_e[0] > 0, -mean_e[0], state.sensor_height)
+
+    # flatness: a starved ring freezes itself and every later ring
+    n_tot_pre = state.flat_cnt[:n_roi] + k
+    do = torch.cumsum((n_tot_pre <= 1).to(torch.int32), dim=0) == 0
+    buf_pre_f, buf_post_f, cnt_new_f, n_tot_f = _append_rings(
+        state.flat_buf[:n_roi], state.flat_cnt[:n_roi], flat_c, k,
+        p.max_flatness_storage, do_trim=do, w=w,
+    )
+    mean_f, stdev_f, _ = _masked_mean_stdev_rows(
+        buf_pre_f, iota[None, :] < n_tot_f[:, None]
+    )
+    flat_thr = state.flatness_thr.clone()
+    flat_thr[:n_roi] = torch.where(
+        do, mean_f + stdev_f, state.flatness_thr[:n_roi]
+    )
+
+    def _set(full, rows):
+        out = full.clone()
+        out[:n_roi] = rows
+        return out
+
+    return AdaptiveState(
+        sensor_height=sh,
+        elevation_thr=elev_thr,
+        flatness_thr=flat_thr,
+        elev_buf=_set(state.elev_buf, buf_post_e),
+        elev_cnt=_set(state.elev_cnt, cnt_new_e),
+        flat_buf=_set(state.flat_buf, buf_post_f),
+        flat_cnt=_set(state.flat_cnt, cnt_new_f),
+    )
+
+
+def make_frame_fn(params: Params, geom: CZMGeometry | None = None, device="cuda"):
+    """Build the frame step ``fn(state, points, npts) -> (state, FrameResult)``.
+
+    ``points`` is a (P, 4) float32 tensor on ``device`` (padded), ``npts``
+    the number of real rows (an int). The fit program runs as the CUDA
+    kernel on a CUDA device (the default) and as its plain version when the
+    caller asks for ``device="cpu"``."""
+    p = params
+    geom = geom or CZMGeometry.create(p)
+    dev = torch.device(device)
+    tables = build_static_tables(p, geom)
+    npz = geom.num_patches
+    spad = geom.spad
+
+    max_storage_ok = BUF_CAP - tables.max_ring_patches
+    for nm in ("max_elevation_storage", "max_flatness_storage"):
+        if getattr(p, nm) > max_storage_ok:
+            raise ValueError(
+                f"{nm}={getattr(p, nm)} exceeds {max_storage_ok} (BUF_CAP="
+                f"{BUF_CAP} minus the {tables.max_ring_patches} samples a "
+                "ring can add per frame); the adaptive buffers would drop samples"
+            )
+
+    cring_tab = torch.as_tensor(tables.cring, device=dev)
+    shift_tab = torch.as_tensor(tables.shift, device=dev)
+    sid = torch.arange(spad, device=dev)
+    zone0_f = (sid < tables.num_zone0).to(torch.float32)
+    snap_off, carry2_off, _ = out_layout(p)
+    n_roi = p.num_rings_of_interest
+    w = tables.max_ring_patches
+    sentinel_plane = torch.tensor([0.0, 0.0, 0.0, f32(1e30)], device=dev)
+
+    def _rings(vals: torch.Tensor) -> torch.Tensor:
+        """(S,) per-patch values -> (n_roi, w) zero-padded ring rows."""
+        out = torch.zeros((n_roi, w), dtype=vals.dtype, device=dev)
+        for ci, (a, b) in enumerate(tables.ring_slices):
+            out[ci, : b - a] = vals[a:b]
+        return out
+
+    def _finalize(
+        state, normal, mean, svals, g_count, processed, proc_f,
+        final_plane_tab, vpf_tables, pid_o, x_o, y_o, z_o,
+    ):
+        """A-GLE cascade, TGR, state update, original-order labels."""
+        zero = torch.zeros((), device=dev)
+        one = torch.ones((), device=dev)
+        uprightness = normal[:, 2]
+        elevation = mean[:, 2]
+        flatness = svals[:, 2]
+        sv0, sv1 = svals[:, 0], svals[:, 1]
+        line_variable = torch.where(
+            sv1 != 0, sv0 / sv1, torch.full_like(sv0, _F32_MAX)
+        )
+        heading = (
+            mean[:, 0] * normal[:, 0] + mean[:, 1] * normal[:, 1]
+        ) + mean[:, 2] * normal[:, 2]
+
+        is_upright = uprightness > f32(p.uprightness_thr)
+        is_near = cring_tab < n_roi
+        ring_idx = torch.clamp_max(cring_tab, n_roi - 1).to(torch.int64)
+        is_not_elevated = is_near & (elevation < state.elevation_thr[ring_idx])
+        is_flat = is_near & (flatness < state.flatness_thr[ring_idx])
+        heading_out = heading < 0.0
+
+        accept = processed & is_upright & is_not_elevated & is_near
+        ground_patch = (
+            processed
+            & is_upright
+            & (~is_near | (heading_out & (is_not_elevated | is_flat)))
+        )
+        candidate = (
+            processed & is_upright & is_near & heading_out
+            & ~is_not_elevated & ~is_flat
+        )
+
+        # ---- TGR per ring of interest (reference :291-304, :402-464).
+        ring_flat = _rings(flatness)
+        ring_acc = _rings(accept)
+        ring_elev = _rings(elevation)
+        revert_patch = torch.zeros(spad, dtype=torch.bool, device=dev)
+        if p.enable_TGR:
+            ring_cand = _rings(candidate)
+            ring_gcnt = _rings(g_count)
+            ring_linev = _rings(line_variable)
+            # flush_from at ring ci = 1 + the last ring j < ci with
+            # candidates (0 if none): an exclusive cumulative max
+            ring_ids = torch.arange(n_roi, device=dev)
+            adv = torch.where(ring_cand.any(dim=1), ring_ids + 1, 0)
+            ff = torch.cat(
+                [torch.zeros(1, dtype=adv.dtype, device=dev),
+                 torch.cummax(adv, dim=0).values[:-1]]
+            )
+            include = (ring_ids[None, :] >= ff[:, None]) & (
+                ring_ids[None, :] <= ring_ids[:, None]
+            )  # (target ring, source ring)
+            m = ring_acc[None, :, :] & include[:, :, None]
+            mean_f, stdev_f, _ = _masked_mean_stdev_rows(
+                ring_flat[None].expand(m.shape).reshape(n_roi, -1),
+                m.reshape(n_roi, -1),
+            )
+            mu = (mean_f + 1.5 * stdev_f)[:, None]
+            F = ring_flat
+            # exp in float64, rounded: the float32 exp of CPU and CUDA
+            # libraries differ in the last ulp
+            e = torch.exp(((F - mu) / div(mu, 10.0)).double()).float()
+            prob_flat = 1.0 / (1.0 + e)
+            big_flat = (ring_gcnt > 1500) & (F < f32(p.th_dist * p.th_dist))
+            prob_flat = torch.where(big_flat, one, prob_flat)
+            prob_line = torch.where(ring_linev > 8.0, zero, one)
+            revert_ring = ring_cand & (prob_line * prob_flat > 0.5)
+            for ci, (a, b) in enumerate(tables.ring_slices):
+                revert_patch[a:b] = revert_ring[ci, : b - a]
+
+        new_state = _update_state(state, p, ring_acc, ring_elev, ring_flat)
+
+        # ---- per-point labels in ORIGINAL order (C13): replay the peel
+        # tests and the final distance test against the per-patch tables.
+        # Each R-VPF snapshot's gate folds into a sentinel plane whose
+        # |distance| never passes the peel threshold.
+        code = 2.0 * proc_f + (ground_patch | revert_patch).to(torch.float32)
+        vpf_cols = [
+            torch.where(t[:, 4:5] > 0.5, t[:, 0:4], sentinel_plane[None, :])
+            for t in vpf_tables
+        ]
+        label_tab = torch.cat([final_plane_tab, code[:, None]] + vpf_cols, dim=1)
+
+        def _replay(pid_b, xb, yb, zb):
+            # a gather (the JAX package's one-hot MXU lookup, ops/onehot.py,
+            # returns the same bits)
+            lk = label_tab[pid_b]
+
+            def _plane_dist(c0):
+                return (
+                    (xb * lk[:, c0] + yb * lk[:, c0 + 1]) + zb * lk[:, c0 + 2]
+                ) + lk[:, c0 + 3]
+
+            dist_o = _plane_dist(0)
+            peeled = torch.zeros(pid_b.shape[0], dtype=torch.bool, device=dev)
+            for it in range(len(vpf_tables)):
+                peeled = peeled | (
+                    torch.abs(_plane_dist(5 + 4 * it)) < f32(p.th_dist_v)
+                )
+            return (
+                (lk[:, 4] > 1.5)
+                & ~peeled
+                & (dist_o < f32(p.th_dist))
+                & (lk[:, 4] > 2.5)
+            )
+
+        pid_l = pid_o.to(torch.int64)
+        blk = _REPLAY_BLOCK
+        ground = torch.cat([
+            _replay(pid_l[s:s + blk], x_o[s:s + blk], y_o[s:s + blk], z_o[s:s + blk])
+            for s in range(0, pid_l.shape[0], blk)
+        ])
+
+        result = FrameResult(
+            ground_mask=ground,
+            num_ground=torch.sum(ground).to(torch.int32),
+            patch_mean=mean[:npz],
+            patch_normal=normal[:npz],
+            patch_svals=svals[:npz],
+            patch_processed=processed[:npz],
+        )
+        return new_state, result
+
+    def fit_inputs(state: AdaptiveState, points: torch.Tensor, npts: int) -> FitInputs:
+        """Sanitize, bin and tile one padded cloud: everything the fit
+        kernel and the frame's tail read."""
+        with record_function("stage_rnr_czm"):
+            points = _sanitize_nonfinite(points.to(torch.float32))
+            bins = bin_points(points, npts, state.sensor_height, p, geom)
+        with record_function("stage_sort"):
+            tp = build_tiled(
+                points[:, :3], bins.patch_id,
+                counts=factored_patch_counts(bins, geom, spad), width=spad,
+            )
+        processed = (tp.counts >= p.num_min_pts) & (sid < npz)
+        proc_f = processed.to(torch.float32)
+
+        nt = tp.xyz.shape[0] // TILE
+        # gates: [processed, shift(3), zone0, 0, 0, 0]; sentinel tiles clamp
+        # to patch spad-1, which is never zone 0 nor processed
+        gates = torch.cat(
+            [
+                proc_f[:, None], shift_tab, zone0_f[:, None],
+                torch.zeros((spad, 3), device=dev),
+            ],
+            dim=1,
+        ).contiguous()
+        margin_thr = f32(p.adaptive_seed_selection_margin) * state.sensor_height
+        return FitInputs(
+            xs=tp.xyz[:, 0].reshape(nt, TILE).contiguous(),
+            ys=tp.xyz[:, 1].reshape(nt, TILE).contiguous(),
+            zs=tp.xyz[:, 2].reshape(nt, TILE).contiguous(),
+            valid_f=tp.valid.to(torch.float32).reshape(nt, TILE),
+            tile_patch=torch.clamp_max(tp.tile_patch, spad - 1),
+            pad_start=tp.pad_start,
+            gates=gates,
+            consts=torch.cat([margin_thr.reshape(1), torch.zeros(7, device=dev)]),
+            counts=tp.counts,
+            processed=processed,
+            points=points,
+            patch_id=bins.patch_id,
+        )
+
+    def frame_fused(state: AdaptiveState, points: torch.Tensor, npts: int):
+        fi = fit_inputs(state, points, npts)
+        with record_function("stage_fused_fit"):
+            out = fused_fit_grid(
+                fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
+                fi.gates, fi.consts, p,
+            )
+        with record_function("stage_gle_tail"):
+            return _tail(state, fi, out)
+
+    def _tail(state: AdaptiveState, fi: FitInputs, out: torch.Tensor):
+        """Fit table -> eigenvalues, snapshot tables, then _finalize."""
+        # the overflow bucket and empty patches hold no fit
+        out = torch.where(fi.counts[:, None] > 0, out, torch.zeros((), device=dev))
+
+        normal = out[:, OUT_NORMAL:OUT_NORMAL + 3]
+        mean = out[:, OUT_MEAN:OUT_MEAN + 3]
+        g_count = out[:, OUT_GCOUNT]
+        c = out[:, OUT_COV:OUT_COV + 6]
+        cov = torch.stack(
+            [
+                torch.stack([c[:, 0], c[:, 1], c[:, 2]], dim=-1),
+                torch.stack([c[:, 1], c[:, 3], c[:, 4]], dim=-1),
+                torch.stack([c[:, 2], c[:, 4], c[:, 5]], dim=-1),
+            ],
+            dim=-2,
+        )
+        svals, _ = eigh3x3_descending(cov)
+
+        # R-VPF snapshots: kernel layout [gate, nx, ny, nz, d] -> label-pass
+        # layout [nx, ny, nz, d, gate]
+        vpf_tables = []
+        if p.enable_RVPF:
+            for it in range(p.num_iter):
+                a = snap_off + it * 5
+                snap = out[:, a:a + 5]
+                vpf_tables.append(torch.cat([snap[:, 1:5], snap[:, 0:1]], dim=1))
+        final_plane_tab = out[:, carry2_off:carry2_off + 4]
+
+        return _finalize(
+            state, normal, mean, svals, g_count, fi.processed,
+            fi.processed.to(torch.float32), final_plane_tab, vpf_tables,
+            fi.patch_id, fi.points[:, 0], fi.points[:, 1], fi.points[:, 2],
+        )
+
+    # the fit kernel's inputs for a cloud, as the frame builds them (for
+    # holding the kernel against its plain version at the frame's shapes)
+    frame_fused.fit_inputs = fit_inputs
+    return frame_fused
+
+
+def make_sequence_fn(params: Params, geom: CZMGeometry | None = None, device="cuda"):
+    """Build ``fn(state, stack, npts) -> (state, FrameResult)`` over a
+    (B, P, 4) stack of scans: the frame step in order, the adaptive state
+    threaded from each frame to the next, every FrameResult field stacked
+    on a leading B axis. A frame loop; capturing it as a CUDA graph is
+    later work."""
+    frame = make_frame_fn(params, geom, device)
+
+    def sequence(state: AdaptiveState, stack: torch.Tensor, npts: List[int]):
+        results = []
+        for i in range(stack.shape[0]):
+            state, res = frame(state, stack[i], int(npts[i]))
+            results.append(res)
+        return state, FrameResult(
+            *(torch.stack(list(f)) for f in zip(*results))
+        )
+
+    return sequence

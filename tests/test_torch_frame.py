@@ -1,0 +1,223 @@
+"""The port's frame (tiled engine, CPU path) vs the JAX tiled engine on
+seeded synthetic clouds (tests/test_fuzz_parity.py:synth_cloud) at capacity
+8192, and the port facade's contract.
+
+Labels must be equal, fresh and through two adapted frames. Adaptive-state
+counts must be equal. State floats: sensor height and the elevation buffer
+are plane centroids, equal to a few float32 ulp (atol 1e-5 m); the flatness
+buffer holds each patch's smallest covariance eigenvalue, where XLA:CPU's
+contracted Cardano evaluation and the port's step-by-step float32 differ by
+the method's O(sqrt(eps) * ||cov||) small-root error (tests/test_torch_eigen.py);
+the largest difference seen is 1.9e-4, so atol is 1e-3.
+
+On the boundary-probe clouds (``exact_edges=True``) the two packages may
+bin a straddling point differently (ops/binning.py: the port's atan2 runs
+in float64); with those few points removed the labels must be equal again.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import patchworkpp_tpu.state as jstate
+import patchworkpp_tpu_torch.pipeline as tpipe
+from patchworkpp_tpu.ops.binning import bin_points as j_bin_points
+from patchworkpp_tpu.params import CZMGeometry as JGeom
+from patchworkpp_tpu.params import Params as JParams
+from patchworkpp_tpu.pipeline import make_frame_fn as j_make_frame_fn
+from patchworkpp_tpu_torch import AdaptiveState, CZMGeometry, Params, PatchworkPP, init_state
+from patchworkpp_tpu_torch.models.patchworkpp import _round_capacity
+from patchworkpp_tpu_torch.ops.binning import bin_points
+from test_fuzz_parity import CAP, synth_cloud
+
+STATE_ATOL = {"sensor_height": 1e-5, "elevation_thr": 1e-5, "elev_buf": 1e-5,
+              "flatness_thr": 1e-3, "flat_buf": 1e-3}
+
+
+@pytest.fixture(scope="module")
+def jax_frame():
+    return jax.jit(j_make_frame_fn(JParams()))
+
+
+@pytest.fixture(scope="module")
+def torch_frame():
+    return tpipe.make_frame_fn(Params(), device="cpu")
+
+
+def _padded(cloud):
+    pts = np.zeros((CAP, 4), np.float32)
+    pts[: len(cloud), : cloud.shape[1]] = cloud
+    return pts
+
+
+def _chain(seed):
+    """Three different clouds, one adaptive chain."""
+    return [synth_cloud(seed + 5 * k, exact_edges=False) for k in range(3)]
+
+
+def _assert_state_close(js, ts, label):
+    jn, tn = js.to_numpy(), ts.to_numpy()
+    assert sorted(jn) == sorted(tn)
+    for k in jn:
+        assert jn[k].dtype == tn[k].dtype, k
+        if jn[k].dtype.kind == "i":
+            np.testing.assert_array_equal(tn[k], jn[k], err_msg=f"{label} {k}")
+        else:
+            err = float(np.abs(tn[k].astype(np.float64) - jn[k]).max())
+            print(f"{label} {k}: max |err| {err:.3e}")
+            assert err <= STATE_ATOL[k], (label, k, err)
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_labels_match_jax_tiled_engine(jax_frame, torch_frame, seed):
+    js, ts = jstate.init_state(JParams()), init_state(Params())
+    for k, cloud in enumerate(_chain(seed)):
+        pts = _padded(cloud)
+        js, jr = jax_frame(js, jnp.asarray(pts), jnp.int32(len(cloud)))
+        ts, tr = torch_frame(ts, torch.from_numpy(pts), len(cloud))
+        label = f"seed {seed} frame {k}"
+        np.testing.assert_array_equal(tr.ground_mask.numpy(), np.asarray(jr.ground_mask),
+                                      err_msg=label)
+        assert int(tr.num_ground) == int(jr.num_ground) > 0
+        np.testing.assert_array_equal(tr.patch_processed.numpy(),
+                                      np.asarray(jr.patch_processed), err_msg=label)
+        _assert_state_close(js, ts, label)
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_edge_probe_labels_match_without_straddlers(jax_frame, torch_frame, seed):
+    p, jp = Params(), JParams()
+    geom, jgeom = CZMGeometry.create(p), JGeom.create(jp)
+    # jitted, as inside the frame program (op-by-op XLA may round otherwise)
+    j_bins = jax.jit(lambda pts, n, sh: j_bin_points(pts, n, sh, jp, jgeom))
+    js, ts = jstate.init_state(jp), init_state(p)
+    straddlers = 0
+    for k in range(3):
+        cloud = synth_cloud(seed + 5 * k, exact_edges=True)
+        pts = _padded(cloud)
+        jb = j_bins(jnp.asarray(pts), jnp.int32(len(cloud)), js.sensor_height)
+        tb = bin_points(torch.from_numpy(pts), len(cloud), ts.sensor_height, p, geom)
+        diff = np.zeros(len(cloud), bool)
+        for f in ("patch_id", "noise", "in_range"):
+            diff |= (np.asarray(getattr(jb, f))[: len(cloud)]
+                     != getattr(tb, f).numpy()[: len(cloud)])
+        straddlers += int(diff.sum())
+        cloud = cloud[~diff]
+        pts = _padded(cloud)
+        js, jr = jax_frame(js, jnp.asarray(pts), jnp.int32(len(cloud)))
+        ts, tr = torch_frame(ts, torch.from_numpy(pts), len(cloud))
+        np.testing.assert_array_equal(tr.ground_mask.numpy(), np.asarray(jr.ground_mask),
+                                      err_msg=f"seed {seed} frame {k}")
+    print(f"seed {seed}: {straddlers} straddler(s) removed over 3 frames")
+
+
+def test_sequence_matches_frame_loop(torch_frame):
+    p = Params()
+    clouds = _chain(1)
+    stack = torch.from_numpy(np.stack([_padded(c) for c in clouds]))
+    st_seq, res = tpipe.make_sequence_fn(p, device="cpu")(
+        init_state(p), stack, [len(c) for c in clouds]
+    )
+    st = init_state(p)
+    for i in range(len(clouds)):
+        st, r = torch_frame(st, stack[i], len(clouds[i]))
+        for name in r._fields:
+            assert torch.equal(getattr(res, name)[i], getattr(r, name)), (i, name)
+    for k, v in st.to_numpy().items():
+        np.testing.assert_array_equal(st_seq.to_numpy()[k], v, err_msg=k)
+
+    a = PatchworkPP(device="cpu")
+    seq = a.estimate_ground_sequence(clouds)
+    b = PatchworkPP(capacity=CAP, device="cpu")
+    for c, s in zip(clouds, seq):
+        r = b.estimate_ground(c)
+        np.testing.assert_array_equal(s.ground_mask, r.ground_mask)
+        np.testing.assert_array_equal(s.normals, r.normals)
+    assert a.sensor_height == b.sensor_height
+
+
+def test_facade_result_and_state_roundtrip(tmp_path, jax_frame):
+    """The facade's result matches the frame's; a state saved by the JAX
+    engine continues in the port facade as it does in the JAX engine."""
+    clouds = _chain(2)
+    js = jstate.init_state(JParams())
+    js, _ = jax_frame(js, jnp.asarray(_padded(clouds[0])), jnp.int32(len(clouds[0])))
+    path = str(tmp_path / "state.npz")
+    js.save(path)
+    _, jr = jax_frame(js, jnp.asarray(_padded(clouds[1])), jnp.int32(len(clouds[1])))
+
+    m = PatchworkPP(capacity=CAP, device="cpu")
+    m.load_state(path)
+    res = m.estimate_ground(clouds[1])
+    n = len(clouds[1])
+    np.testing.assert_array_equal(res.ground_mask, np.asarray(jr.ground_mask)[:n])
+    assert res.ground_mask.shape == (n,)
+    np.testing.assert_array_equal(res.ground_indices, np.flatnonzero(res.ground_mask))
+    np.testing.assert_array_equal(res.nonground_indices, np.flatnonzero(~res.ground_mask))
+    proc = np.asarray(jr.patch_processed)
+    assert res.centers.shape == res.normals.shape == (int(proc.sum()), 3)
+    assert (res.normals[:, 2] >= 0).all()
+
+    m.save_state(str(tmp_path / "port.npz"))
+    back = AdaptiveState.load(str(tmp_path / "port.npz"))
+    for k, v in m.state.to_numpy().items():
+        np.testing.assert_array_equal(back.to_numpy()[k], v, err_msg=k)
+    m.reset()
+    for k, v in init_state(Params()).to_numpy().items():
+        np.testing.assert_array_equal(m.state.to_numpy()[k], v, err_msg=k)
+
+
+def test_default_device_is_cuda_and_refuses_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PatchworkPP()
+    assert PatchworkPP(device="cpu").device.type == "cpu"
+
+
+def test_three_column_cloud_turns_rnr_off():
+    """A 3-column cloud runs with RNR off; its reflected-noise points are
+    then binned like any other (the reference refuses RNR without
+    intensity), so the result equals RNR disabled on the 4-column cloud."""
+    cloud = synth_cloud(4, exact_edges=False)
+    r3 = PatchworkPP(capacity=CAP, device="cpu").estimate_ground(cloud[:, :3])
+    off = PatchworkPP(Params(enable_RNR=False), capacity=CAP, device="cpu")
+    np.testing.assert_array_equal(r3.ground_mask, off.estimate_ground(cloud).ground_mask)
+    jfn = jax.jit(j_make_frame_fn(JParams(enable_RNR=False)))
+    _, jr = jfn(jstate.init_state(JParams()), jnp.asarray(_padded(cloud[:, :3])),
+                jnp.int32(len(cloud)))
+    np.testing.assert_array_equal(r3.ground_mask, np.asarray(jr.ground_mask)[: len(cloud)])
+
+
+@pytest.mark.parametrize("n", [0, 1, 5])
+def test_empty_and_tiny_clouds_are_all_nonground(n):
+    cloud = synth_cloud(0, exact_edges=False)[:n]
+    m = PatchworkPP(device="cpu")
+    res = m.estimate_ground(cloud)
+    assert res.ground_mask.shape == (n,) and not res.ground_mask.any()
+    assert res.ground_indices.size == 0 and res.nonground_indices.size == n
+    assert np.isfinite(m.sensor_height)
+
+
+def test_replay_blocks_do_not_change_labels(torch_frame, monkeypatch):
+    cloud = synth_cloud(3, exact_edges=False)
+    pts = torch.from_numpy(_padded(cloud))
+    _, whole = torch_frame(init_state(Params()), pts, len(cloud))
+    monkeypatch.setattr(tpipe, "_REPLAY_BLOCK", 1000)
+    _, blocked = torch_frame(init_state(Params()), pts, len(cloud))
+    assert torch.equal(whole.ground_mask, blocked.ground_mask)
+
+
+def test_capacity_buckets():
+    from patchworkpp_tpu.models.patchworkpp import _round_capacity as j_round
+
+    for n in (0, 1, 8191, 8192, 8193, 120000, 131072):
+        assert _round_capacity(n) == j_round(n)
+    m = PatchworkPP(capacity=CAP, device="cpu")
+    with pytest.raises(ValueError, match="capacity"):
+        m.estimate_ground(np.zeros((CAP + 1, 4), np.float32))
+    with pytest.raises(ValueError, match=r"\(N,3\) or \(N,4\)"):
+        m.estimate_ground(np.zeros((10, 5), np.float32))

@@ -1,0 +1,50 @@
+"""The PyTorch port stands alone: no module of patchworkpp_tpu_torch, and not
+chip_smoke.py, imports jax or the JAX package (checked on the source with
+the ast module, since importing would pull in whatever the interpreter has
+already loaded)."""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "patchworkpp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib") or top == "patchworkpp_tpu"
+
+
+def test_port_has_the_expected_files():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for want in (
+        "patchworkpp_tpu_torch/params.py",
+        "patchworkpp_tpu_torch/state.py",
+        "patchworkpp_tpu_torch/pipeline.py",
+        "patchworkpp_tpu_torch/ops/tiled_fit.py",
+        "patchworkpp_tpu_torch/ops/fit_kernel_grid.py",
+        "patchworkpp_tpu_torch/models/patchworkpp.py",
+        "chip_smoke.py",
+    ):
+        assert want in names
+    assert (ROOT / "patchworkpp_tpu_torch" / "csrc" / "fit_grid.cu").exists()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_import(path):
+    bad = sorted({m for m in _imported_modules(path) if _forbidden(m)})
+    assert not bad, f"{path.name} imports {bad}"
