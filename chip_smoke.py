@@ -3,27 +3,35 @@
 
 Phases, in order; any failure raises and exits nonzero before the last line:
 
-1. print the card (nvidia-smi name, power limit) and build the CUDA fit
-   kernel from patchworkpp_tpu_torch/csrc/fit_grid.cu (build time, ptxas
-   report);
+1. print the card (nvidia-smi name, power limit) and build the two CUDA fit
+   kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu and K2 from
+   csrc/fit_onehot.cu, with one nvcc each started together (build time,
+   ptxas reports);
 2. make a synthetic KITTI-scale scan from --seed (64 beams over 360 deg, a
    tilted noisy ground plane, walls, boxes, reflected noise below ground,
    points out of range);
-3. hold the fit kernel against its plain PyTorch version on the card, on
-   that scan's tiled inputs at capacity 131072, and on a small cloud with
-   num_iter=4;
-4. drive the main path, PatchworkPP(device="cuda").estimate_ground, over
-   --frames state-chained frames; the labels must equal the CPU path's on
-   the same frames, the final adaptive state must agree, and the kernel's
-   launch count must equal the frame count;
-5. time the kernel, its plain version on the card and the frame, with CUDA
-   events after warm-up, and print the kernels JSON line;
+3. hold each fit kernel against its plain PyTorch version on the card and
+   on the CPU, on that scan's tiled inputs at capacity 131072 (and K1 on a
+   small cloud with num_iter=4); K2's integer columns must equal K1's;
+4. drive the main paths through PatchworkPP(...).estimate_ground over
+   --frames state-chained frames: the default engine (K1) and
+   fused="onehot" (K2), each with every launch count set to 0 just before
+   and read just after; the labels must equal the CPU path's on the same
+   frames, each kernel's launch count must equal the frame count on its
+   path and be 0 on the other's, the final adaptive state must agree; then
+   the unfused engine (fused=False) for 3 frames, labels equal to the CPU
+   unfused engine's; the labels that differ between the three engines are
+   printed, not asserted;
+5. time both kernels, their plain versions on the card and the frame of
+   each engine, with CUDA events after warm-up, and print the kernels JSON
+   line;
 6. print {"ok": true, "device": {...}} as the last line.
 
-With --profile, a torch.profiler window over a few frames follows phase 5:
-host and device time per frame stage, the device's busy share and the
-kernels that take the most device time (printed, and kept in
-chiprun_out/chip_smoke.json with the other numbers).
+With --profile, a torch.profiler window over a few frames of each engine
+(tiled, onehot, unfused) follows phase 5: host and device time per frame
+stage, the device's busy share and the kernels that take the most device
+time (printed, and kept in chiprun_out/chip_smoke.json with the other
+numbers).
 
 Usage: python3 chip_smoke.py [--seed 0] [--frames 20] [--profile]
 Needs one CUDA card and nvcc (CUDA toolkit); run from a checkout of the repo.
@@ -37,6 +45,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -45,8 +54,11 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 # f32 operations per tiled row and pass of the fit program: distance or
 # seed test (~8), 3 shifts, 15 monomial products, 10 lane-sum adds, mask
-# and LPR bookkeeping (~4)
+# and LPR bookkeeping (~4). Both kernels compute the same program (K2 in
+# 15 unrolled passes, K1 in 7 fused ones), so both are held to the work of
+# the 7 fused passes.
 FIT_OPS_PER_ROW_PASS = 40
+UNFUSED_FRAMES = 3
 # kernel vs plain version on the same inputs: both run the same float
 # operations in the same order (contraction off), so they are expected to
 # agree bit for bit; the float tolerance only allows for a card whose
@@ -148,9 +160,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_tables(k, ref, params, label):
+def compare_tables(k, ref, params, label, float_tol=True):
     """Kernel table vs plain table: integer columns equal, float columns
-    within FIT_ATOL/FIT_RTOL, NaNs in the same places. Returns max |err|."""
+    within FIT_ATOL/FIT_RTOL (only printed when not ``float_tol``), NaNs in
+    the same places. Returns max |err|."""
     import torch
 
     from patchworkpp_tpu_torch.ops.fit_kernel import OUT_GCOUNT, OUT_N
@@ -170,7 +183,7 @@ def compare_tables(k, ref, params, label):
     fin = ~nan_k
     err = (k - ref).abs()[fin]
     tol = (FIT_ATOL + FIT_RTOL * ref.abs())[fin]
-    if bool((err > tol).any()):
+    if float_tol and bool((err > tol).any()):
         worst = int(((k - ref).abs().nan_to_num(0.0)).max(dim=0).values.argmax())
         raise AssertionError(
             f"{label}: max |err| {float(err.max())} over tolerance "
@@ -288,6 +301,7 @@ def main() -> int:
     sys.path.insert(0, here)
     import patchworkpp_tpu_torch
     from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
+    from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
     from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
     from patchworkpp_tpu_torch.pipeline import make_frame_fn
@@ -301,13 +315,16 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
 
-    # ---- 1. card and build
+    # ---- 1. card and build (one nvcc per source, started together)
     print(f"card: {card}")
     t0 = time.perf_counter()
-    fkg.build()
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(fkg.build), pool.submit(fk.build)]:
+            fut.result()
     build_s = time.perf_counter() - t0
-    print(f"fit kernel build: {build_s:.2f} s")
+    print(f"fit kernels build (K1 and K2 in parallel): {build_s:.2f} s")
     print(fkg.build_log().strip())
+    print(fk.build_log().strip())
 
     # ---- 2. scan
     p = Params()
@@ -343,57 +360,106 @@ def main() -> int:
     compare_tables(fkg.fused_fit_grid(*a4, fi4.consts, p4),
                    tiled_fit(*a4, fi4.consts[0], p4), p4, "fit kernel num_iter=4")
 
-    # ---- 4. main path on the card vs the CPU path
-    gpu = PatchworkPP(p, capacity=CAPACITY, device="cuda")
-    fkg.fused_fit_grid.launches = 0
-    gpu_res = [gpu.estimate_ground(s) for s in scans]
-    launches = fkg.fused_fit_grid.launches
-    if launches != args.frames:
-        raise AssertionError(f"fit kernel launched {launches} times in "
-                             f"{args.frames} frames")
-    cpu = PatchworkPP(p, capacity=CAPACITY, device="cpu")
-    for i, s in enumerate(scans):
-        r = cpu.estimate_ground(s)
-        g = gpu_res[i]
-        if not np.array_equal(g.ground_mask, r.ground_mask):
-            diff = int((g.ground_mask != r.ground_mask).sum())
-            raise AssertionError(f"frame {i}: {diff} labels differ card vs cpu")
-        if g.ground_mask.shape != (len(s),) or not 0 < g.ground_mask.sum() < len(s):
-            raise AssertionError(f"frame {i}: implausible labels")
-    st_g, st_c = gpu.state.to_numpy(), cpu.state.to_numpy()
-    for key in st_c:
-        if st_c[key].dtype.kind == "i":
-            np.testing.assert_array_equal(st_g[key], st_c[key], err_msg=key)
-        else:
-            np.testing.assert_allclose(st_g[key], st_c[key], rtol=0,
-                                       atol=STATE_ATOL, err_msg=key)
-    print(f"main path: {args.frames} frames, labels equal to the cpu path, "
-          f"ground {[int(r.ground_mask.sum()) for r in gpu_res[:3]]}..., "
-          f"sensor_height {gpu.sensor_height:.6f}, kernel launches {launches}")
+    k2_out = fk.fused_fit(*fit_args, p)
+    torch.cuda.synchronize()
+    compare_tables(k2_out, fk.fused_fit_reference(*(a.cpu() for a in fit_args), p),
+                   p, "K2 vs plain (cpu)")
+    k2_err = compare_tables(k2_out, fk.fused_fit_reference(*fit_args, p), p,
+                            "K2 vs plain (card)")
+    # K2 and K1 compute the same program with other per-patch sums: the
+    # integer columns are equal, the floats differ by ulps
+    k1k2_err = compare_tables(k2_out, k_out, p, "K2 vs K1 (card)", float_tol=False)
+
+    # ---- 4. main paths on the card vs the CPU path
+    def drive(fused, frames, want):
+        """``frames`` chained frames of engine ``fused`` on the card and
+        on the CPU; labels and state must agree. Every launch count is
+        set to 0 just before the card's run and read just after; ``want``
+        names the kernel that must have launched once a frame (the other
+        must not have launched)."""
+        gpu = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
+        fkg.fused_fit_grid.launches = 0
+        fk.fused_fit.launches = 0
+        res = [gpu.estimate_ground(s) for s in scans[:frames]]
+        counts = {"fit_grid": fkg.fused_fit_grid.launches,
+                  "fit_onehot": fk.fused_fit.launches}
+        for k, n in counts.items():
+            expect = frames if k == want else 0
+            if n != expect:
+                raise AssertionError(f"fused={fused!r}: {k} launched {n} times "
+                                     f"in {frames} frames, expected {expect}")
+        cpu = PatchworkPP(p, capacity=CAPACITY, device="cpu", fused=fused)
+        for i, s in enumerate(scans[:frames]):
+            r = cpu.estimate_ground(s)
+            g = res[i]
+            if not np.array_equal(g.ground_mask, r.ground_mask):
+                diff = int((g.ground_mask != r.ground_mask).sum())
+                raise AssertionError(f"fused={fused!r} frame {i}: {diff} labels "
+                                     "differ card vs cpu")
+            if g.ground_mask.shape != (len(s),) or not 0 < g.ground_mask.sum() < len(s):
+                raise AssertionError(f"fused={fused!r} frame {i}: implausible labels")
+        st_g, st_c = gpu.state.to_numpy(), cpu.state.to_numpy()
+        for key in st_c:
+            if st_c[key].dtype.kind == "i":
+                np.testing.assert_array_equal(st_g[key], st_c[key], err_msg=key)
+            else:
+                np.testing.assert_allclose(st_g[key], st_c[key], rtol=0,
+                                           atol=STATE_ATOL, err_msg=key)
+        print(f"fused={fused!r}: {frames} frames, labels equal to the cpu path, "
+              f"ground {[int(r.ground_mask.sum()) for r in res[:3]]}..., "
+              f"sensor_height {gpu.sensor_height:.6f}, launches {counts}")
+        return res, counts
+
+    gpu_res, counts_k1 = drive(None, args.frames, "fit_grid")
+    onehot_res, counts_k2 = drive("onehot", args.frames, "fit_onehot")
+    launches, launches_k2 = counts_k1["fit_grid"], counts_k2["fit_onehot"]
+    unfused_res, _ = drive(False, UNFUSED_FRAMES, None)
+    engines = {"tiled": gpu_res, "onehot": onehot_res, "unfused": unfused_res}
+    names = list(engines)
+    for a in range(len(names)):
+        for b in range(a + 1, len(names)):
+            ra, rb = engines[names[a]], engines[names[b]]
+            n = min(len(ra), len(rb))
+            diff = [int((ra[i].ground_mask != rb[i].ground_mask).sum()) for i in range(n)]
+            print(f"labels differing {names[a]} vs {names[b]} on the card, "
+                  f"frames 0..{n - 1}: {diff}")
 
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
     plain_ms = cuda_ms(lambda: tiled_fit(*fit_args[:7], fi.consts[0], p), reps=5)
+    k2_ms = cuda_ms(lambda: fk.fused_fit(*fit_args, p), reps=50)
+    k2_plain_ms = cuda_ms(lambda: fk.fused_fit_reference(*fit_args, p), reps=3, warmup=1)
     xs_dev = []
     for s in scans:
         x = torch.zeros((CAPACITY, 4), device=dev)
         x[: len(s)] = torch.from_numpy(s).to(dev)
         xs_dev.append(x)
     npts = [len(s) for s in scans]
-    state = init_state(p, dev)
-    for k in range(min(3, len(scans))):  # warm-up
-        state, _ = frame(state, xs_dev[k], npts[k])
-    per_frame = []
-    for k in range(len(scans)):
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        state, _ = frame(state, xs_dev[k], npts[k])
-        b.record()
-        torch.cuda.synchronize()
-        per_frame.append(a.elapsed_time(b))
+
+    def frame_times(fn, frames, warmup=3):
+        """Per-frame CUDA-event ms over ``frames`` chained frames."""
+        st = init_state(p, dev)
+        for k in range(min(warmup, len(scans))):
+            st, _ = fn(st, xs_dev[k], npts[k])
+        out = []
+        for k in range(frames):
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            st, _ = fn(st, xs_dev[k], npts[k])
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return st, out
+
+    state, per_frame = frame_times(frame, len(scans))
     frame_ms = float(np.median(per_frame))
     host_ms = float(np.median([r.time_taken_s for r in gpu_res[1:]]) * 1e3)
+    _, per_frame_k2 = frame_times(make_frame_fn(p, device=dev, fused="onehot"), len(scans))
+    frame_k2_ms = float(np.median(per_frame_k2))
+    _, per_frame_unf = frame_times(make_frame_fn(p, device=dev, fused=False),
+                                   UNFUSED_FRAMES, warmup=1)
+    frame_unf_ms = float(np.median(per_frame_unf))
 
     npasses, kind = fkg._pass_config(p)[:2]
     rows = 128 * proc_tiles
@@ -411,7 +477,11 @@ def main() -> int:
           f"{walks} walks move {design_bytes} B ({design_bytes / H100_BYTES_PER_S * 1e3:.5f} "
           f"ms at the HBM rate); frame median {frame_ms:.3f} ms (CUDA events), "
           f"{host_ms:.3f} ms host median incl. copies")
+    print(f"K2 {k2_ms:.4f} ms, plain on card {k2_plain_ms:.3f} ms, bound "
+          f"{bound_ms:.5f} ms; onehot frame median {frame_k2_ms:.3f} ms, "
+          f"unfused frame median {frame_unf_ms:.3f} ms (CUDA events)")
 
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
     kernels = {"kernels": [{
         "name": "fit_grid",
         "route": "cuda",
@@ -422,7 +492,19 @@ def main() -> int:
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "fit_onehot",
+        "route": "cuda",
+        "source": "patchworkpp_tpu_torch/csrc/fit_onehot.cu",
+        "replaces": "patchworkpp_tpu/ops/pallas/fit_kernel.py:422",
+        "launches": launches_k2,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
     }]}
     record = {
@@ -430,10 +512,20 @@ def main() -> int:
         "host_frame_ms": host_ms, "points": len(scans[0]),
         "tiles": int(fi.xs.shape[0]), "processed_tiles": proc_tiles,
         "largest_patch_tiles": int(tiles.max()), "frame_ms_each": per_frame,
-        "fit_design_bytes": design_bytes, **kernels,
+        "fit_design_bytes": design_bytes,
+        "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
+        "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
+        "k1_k2_max_abs_diff": k1k2_err, **kernels,
     }
     if args.profile:
-        record["profile"] = profile_frames(frame, state, xs_dev, npts, n=min(5, len(scans)))
+        record["profile"] = {}
+        for label, fused, n in (("tiled", None, 5), ("onehot", "onehot", 5),
+                                ("unfused", False, UNFUSED_FRAMES)):
+            print(f"engine {label}:")
+            fn = make_frame_fn(p, device=dev, fused=fused)
+            st, _ = fn(init_state(p, dev), xs_dev[0], npts[0])  # warm-up
+            record["profile"][label] = profile_frames(
+                fn, st, xs_dev, npts, n=min(n, len(scans)))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
@@ -441,7 +533,7 @@ def main() -> int:
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

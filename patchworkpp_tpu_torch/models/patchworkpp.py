@@ -77,7 +77,10 @@ class PatchworkPP:
     ``device`` defaults to "cuda"; without CUDA, construction raises and
     the caller passes ``device="cpu"`` to run the plain PyTorch path.
     ``capacity`` fixes the padded row count; by default each scan is padded
-    to the next multiple of 8192 rows.
+    to the next multiple of 8192 rows. ``fused`` picks the engine
+    (``pipeline.make_frame_fn``): None/"tiled", True/"grid" and
+    "grid_iota" run the fit kernel K1, "onehot" the unrolled fit kernel K2,
+    False the unfused engine.
     """
 
     def __init__(
@@ -85,6 +88,7 @@ class PatchworkPP:
         params: Optional[Params] = None,
         capacity: Optional[int] = None,
         device: Optional[str] = None,
+        fused=None,
     ) -> None:
         device = torch.device(device or "cuda")
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -96,6 +100,7 @@ class PatchworkPP:
         self.params = params or Params()
         self.geom = CZMGeometry.create(self.params)
         self._fixed_capacity = capacity
+        self._fused = fused
         self._fns = {}  # enable_rnr -> frame fn
         self.state = init_state(self.params, device)
         self.last_result: Optional[FrameResult] = None
@@ -130,7 +135,7 @@ class PatchworkPP:
             p = self.params if enable_rnr == self.params.enable_RNR else (
                 self.params.replace(enable_RNR=enable_rnr)
             )
-            fn = make_frame_fn(p, self.geom, self.device)
+            fn = make_frame_fn(p, self.geom, self.device, fused=self._fused)
             self._fns[enable_rnr] = fn
         return fn
 

@@ -17,13 +17,37 @@ def f32(v: float) -> float:
 
 
 def div(a: torch.Tensor, c: float) -> torch.Tensor:
-    """``a / c`` as an IEEE division on every device.
+    """``a / c`` for a constant ``c``, as XLA computes it: ``a`` times the
+    float32 reciprocal of ``float32(c)``, rounded once on the host.
 
-    PyTorch's CUDA division by a Python scalar multiplies by the scalar's
-    reciprocal, which can round differently from the true division that
-    its CPU kernels, XLA and the CUDA fit kernel perform; a divisor on the
-    tensor's own device keeps it a true division."""
-    return a / torch.full((), c, dtype=a.dtype, device=a.device)
+    XLA's algebraic simplifier rewrites a division by a constant into that
+    multiply, so the JAX package's ``x / 10.0`` is ``x * float32(0.1)``.
+    One float32 multiply by a float32 scalar rounds the same way on the CPU
+    and on the card (PyTorch's own CUDA division by a Python scalar also
+    multiplies by a reciprocal, but one it rounds itself)."""
+    r = np.float32(1.0) / np.float32(c)
+    return a * float(r)
+
+
+def sq_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x*x + y*y`` in float32 as XLA:CPU computes it: contracted into
+    ``fma(x, x, y*y)``, one rounding of the exact ``x*x`` plus ``y*y``.
+
+    ``y*y`` is rounded to float32; ``x*x`` is exact in float64 (24-bit
+    factors); their float64 sum is made round-to-odd with a TwoSum error
+    term, and round-to-odd at 53 bits then rounds to the correctly rounded
+    float32 (Boldo and Melquiond, "Emulation of FMA and correctly rounded
+    sums", IEEE TC 2008). Separate tensor ops, so the same bits on every
+    device. The inputs are finite and of either sign; the sum is >= 0."""
+    a = x.double() * x.double()
+    b = (y * y).double()
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    bits = s.view(torch.int64)
+    odd = (bits & 1) == 1
+    bits = torch.where((e != 0) & ~odd, bits + torch.sign(e).to(torch.int64), bits)
+    return bits.view(torch.float64).float()
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

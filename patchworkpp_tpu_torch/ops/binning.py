@@ -4,12 +4,16 @@
 
 Every point gets a flat patch id in the static patch space; out-of-range,
 noise and padding rows get the overflow id ``num_patches``. The f32
-expression order follows the JAX package. One deliberate difference: the two
-``atan2`` calls are evaluated in float64 and rounded to float32. The f32
-``atan2`` of CPU and CUDA libraries differ in the last ulp, which could move
-a point that sits on a sector edge into another patch on the card than on
-the CPU; the float64 value rounds to the same float32 on both (and is the
-precision the reference itself bins in).
+expression order follows the JAX package, and each step rounds as the JAX
+package's compiled program rounds it on the CPU, so a point that sits on a
+ring or sector edge lands in the same bin in both packages and on the card:
+
+- r^2 is ``fma(x, x, y*y)`` (XLA:CPU contracts ``x*x + y*y``), correctly
+  rounded (``ops.sq_sum``), and r its correctly rounded root (``ops.sqrt``);
+- a division by a constant is a multiply by the constant's float32
+  reciprocal, as XLA rewrites it (``ops.div``);
+- both angles are glibc's ``atan2f``, which XLA:CPU calls
+  (``ops/trig.py:atan2_f32``, built from float32 tensor ops).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from patchworkpp_tpu_torch.ops import div, f32, sqrt
+from patchworkpp_tpu_torch.ops import div, f32, sq_sum, sqrt
+from patchworkpp_tpu_torch.ops.trig import atan2_f32
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 
 
@@ -33,10 +38,6 @@ class PointBins(NamedTuple):
     in_range: torch.Tensor   # bool: inside (min_range, max_range]
     ring14: torch.Tensor     # int32 concentric ring; total rings = none
     sector: torch.Tensor     # int32 sector within the ring; 0 when none
-
-
-def _atan2_f32(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.atan2(y.double(), x.double()).float()
 
 
 def bin_points(
@@ -58,10 +59,10 @@ def bin_points(
     dev = points.device
 
     valid = torch.arange(n, device=dev) < npts
-    r = sqrt(x * x + y * y)
+    r = sqrt(sq_sum(x, y))
 
     if p.enable_RNR:
-        ver_deg = _atan2_f32(z, r) * f32(180.0 / math.pi)
+        ver_deg = atan2_f32(z, r) * f32(180.0 / math.pi)
         noise = (
             (ver_deg < f32(p.RNR_ver_angle_thr))
             & (z < -sensor_height - f32(0.8))
@@ -73,7 +74,7 @@ def bin_points(
 
     in_range = (r <= f32(p.max_range)) & (r > f32(p.min_range)) & valid
 
-    theta = _atan2_f32(y, x)
+    theta = atan2_f32(y, x)
     theta = torch.where(theta > 0, theta, theta + f32(2 * math.pi))
 
     lo = list(geom.min_ranges)

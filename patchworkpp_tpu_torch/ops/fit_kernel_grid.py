@@ -3,9 +3,8 @@
 Replaces the TPU's Pallas grid kernel
 ``patchworkpp_tpu/ops/pallas/fit_kernel_grid.py:fused_fit_grid`` (whose
 program the JAX engine runs as XLA ops in ``ops/tiled_fit.py``). The source
-is ``csrc/fit_grid.cu``; it is compiled with nvcc for sm_90a at the first
-call on a CUDA tensor, into ``build/`` beside this package, and bound with
-ctypes. On a CPU tensor the wrapper runs the plain version
+is ``csrc/fit_grid.cu``, built by ``ops/nvcc.py`` at the first call on a
+CUDA tensor. On a CPU tensor the wrapper runs the plain version
 (``ops/tiled_fit.py:tiled_fit``); on a CUDA tensor it launches the kernel or
 raises.
 """
@@ -14,29 +13,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from patchworkpp_tpu_torch.ops import f32
+from patchworkpp_tpu_torch.ops import f32, nvcc
 from patchworkpp_tpu_torch.ops.fit_kernel import build_pass_program
 from patchworkpp_tpu_torch.params import Params
 
 K_SEEDFIT, K_FITDIST = 0, 1
 LANE = 128
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fit_grid.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = nvcc.CSRC / "fit_grid.cu"
 
 
 def _pass_config(p: Params):
@@ -72,60 +59,23 @@ def _pass_config(p: Params):
     )
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the fit kernel is built from "
-                       f"{SOURCE} at its first CUDA call")
-
-
 @functools.lru_cache(maxsize=1)
 def build() -> ctypes.CDLL:
-    """Compile csrc/fit_grid.cu (once per source content) and load it.
-
-    The library name carries a hash of the source, so an edited kernel is
-    never served from a stale build; nvcc's output (the ``-Xptxas -v``
-    register and spill report) is kept beside it as a ``.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"libfit_grid_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {SOURCE} (exit {proc.returncode}):\n"
-                f"{proc.stderr}"
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.ppk_fit_grid
+    """Compile csrc/fit_grid.cu (once per source content) and load it."""
     ptr, i32, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [
+    return nvcc.build(SOURCE, "ppk_fit_grid", [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # xs ys zs valid pad gates consts prog
         i32,                                      # npasses
         ptr, ptr,                                 # active (scratch), out
         i32, i32, i32, i32, i32, i32,             # nt spad out_cols snap carry2 num_lpr
         flt, flt,                                 # th_dist_v uprightness_thr
         ptr,                                      # stream
-    ]
-    fn.restype = ctypes.c_int
-    return lib
+    ])
 
 
 def build_log() -> str:
     """nvcc's output for the current source (after :func:`build`)."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    log = BUILD_DIR / f"libfit_grid_{tag}.log"
-    return log.read_text() if log.exists() else ""
+    return nvcc.build_log(SOURCE)
 
 
 @functools.lru_cache(maxsize=8)
@@ -135,17 +85,6 @@ def _program(params: Params, device: torch.device) -> torch.Tensor:
     npasses, kind, peel, snap, gate_alive, final, th = _pass_config(params)
     rows = np.stack([kind, peel, snap, gate_alive, final, th.view(np.int32)])
     return torch.as_tensor(rows, device=device).contiguous()
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def fused_fit_grid(
@@ -177,10 +116,10 @@ def fused_fit_grid(
     nt = xs.shape[0]
     spad = gates.shape[0]
     for name, t in (("xs", xs), ("ys", ys), ("zs", zs), ("valid_f", valid_f)):
-        _check(name, t, torch.float32, (nt, LANE), dev)
-    _check("pad_start", pad_start, torch.int32, (spad + 1,), dev)
-    _check("gates", gates, torch.float32, (spad, 8), dev)
-    _check("consts", consts, torch.float32, (8,), dev)
+        nvcc.check(name, t, torch.float32, (nt, LANE), dev)
+    nvcc.check("pad_start", pad_start, torch.int32, (spad + 1,), dev)
+    nvcc.check("gates", gates, torch.float32, (spad, 8), dev)
+    nvcc.check("consts", consts, torch.float32, (8,), dev)
 
     lib = build()
     prog = _program(params, dev)

@@ -1,6 +1,8 @@
 """The fit pass program on the tiled layout, in plain PyTorch: the plain
-version of the CUDA fit kernel (csrc/fit_grid.cu, wrapped by
-ops/fit_kernel_grid.py) and the engine's CPU path.
+version of the CUDA fit kernels K1 (csrc/fit_grid.cu, wrapped by
+ops/fit_kernel_grid.py) and, with plain f32 per-patch sums, K2
+(csrc/fit_onehot.cu, ops/fit_kernel.py:fused_fit_reference), and the tiled
+engine's CPU path.
 
 Port of ``patchworkpp_tpu/ops/tiled_fit.py``, itself the TPU grid kernel
 ``fused_fit_grid``'s program written out as XLA ops. Per patch and pass
@@ -19,8 +21,10 @@ in the fixed pairwise order of ``ops.tree_sum``; each per-tile sum is split
 into three round-to-nearest bf16 parts; the parts are accumulated in f32
 over the patch's tiles in tile order and re-added as (hi + mid) + lo, the
 JAX grid kernel's movement profile (a 1-ulp covariance difference once
-flipped an uprightness decision, see _rne_bf16_split3). The CUDA kernel
-does exactly these operations, so the two agree bit for bit on any device.
+flipped an uprightness decision, see _rne_bf16_split3); K2 adds the tile
+sums in plain f32 instead (``_reduce_tiles_f32``). Each CUDA kernel does
+exactly these operations, so it agrees with this version bit for bit on
+any device.
 """
 
 from __future__ import annotations
@@ -102,6 +106,16 @@ def _reduce_tiles_split3(v: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
     return (acc[:, :c] + acc[:, c:2 * c]) + acc[:, 2 * c:]
 
 
+def _reduce_tiles_f32(v: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
+    """(NT, C) per-tile sums -> (S, C) per-patch sums: plain f32 adds over
+    the patch's tiles in tile order (the unrolled kernel K2's reduction)."""
+    g = torch.where(ok[..., None], v[idx], torch.zeros((), device=v.device))
+    acc = torch.zeros((idx.shape[0], v.shape[1]), dtype=v.dtype, device=v.device)
+    for j in range(idx.shape[1]):
+        acc = acc + g[:, j]
+    return acc
+
+
 def _tile_moments(xs, ys, zs, sx, sy, sz, mask):
     """(NT, 128) masked monomials -> (NT, 10) per-tile sums, in the kernels'
     monomial order ((qx * qx) * mask, not (qx * mask) ** 2)."""
@@ -120,7 +134,7 @@ def _tile_moments(xs, ys, zs, sx, sy, sz, mask):
 
 def tiled_fit(
     xs, ys, zs, valid_f, tile_patch, pad_start, gates_p, margin_thr,
-    params: Params,
+    params: Params, reduce=_reduce_tiles_split3,
 ):
     """Run the fit program on the tiled layout.
 
@@ -131,6 +145,8 @@ def tiled_fit(
       pad_start: (S+1,) int32 tile-aligned run starts (ops/tiled.py).
       gates_p: (S, 8) f32 [processed, shift_x, shift_y, shift_z, zone0, 0..].
       margin_thr: () f32 zone-0 seed margin (margin * sensor_height).
+      reduce: the per-tile -> per-patch sum: K1's split-bf16x3 sums
+        (default) or K2's plain f32 sums (``_reduce_tiles_f32``).
 
     Returns:
       (S, out_cols) f32 per-patch result table (fit_kernel OUT_* layout,
@@ -190,7 +206,7 @@ def tiled_fit(
             rank = _lane_prefix_exclusive(e)
             take = elig * (rank < quota[:, None]).to(torch.float32)
             per = torch.stack([tree_sum(zs * take), tree_sum(take)], dim=1)
-            tot = _reduce_tiles_split3(per, idx, ok)
+            tot = reduce(per, idx, ok)
             cnt = tot[:, 1]
             lpr_p = torch.where(cnt > 0, tot[:, 0] / torch.clamp_min(cnt, 1.0), zero)
             mask = (
@@ -208,9 +224,7 @@ def tiled_fit(
             )
             mask = active * (dist < th).to(torch.float32)
 
-        momp = _reduce_tiles_split3(
-            _tile_moments(xs, ys, zs, sx, sy, sz, mask), idx, ok
-        )
+        momp = reduce(_tile_moments(xs, ys, zs, sx, sy, sz, mask), idx, ok)
         if kind[i] == K_FITDIST and final[i]:
             g_count = momp[:, 0]
 

@@ -6,15 +6,21 @@ the tile layout. The one freedom is the order of rows with bit-identical
 (patch, z) sort keys (the JAX sort is unstable, the port's is stable), so
 the tiled x/y rows are compared as a multiset within such ties.
 
-On the boundary-probe variant (``exact_edges=True``) some points have no
-f32-decidable bin: the port's float64 atan2 and XLA's float32 atan2 / sqrt
-may round them to opposite sides (ops/binning.py, JAX binning.py:97-106).
-Those are reported, and the test asserts that every disagreement is such a
-boundary point.
+The boundary-probe variant (``exact_edges=True``) puts points within an
+ulp of ring, sector and RNR edges. The port rounds each binning step as
+XLA:CPU does, so even there every output must be equal: r^2 is XLA's
+contracted ``fma(x, x, y*y)`` (``ops.sq_sum``), a division by a constant is
+a multiply by its float32 reciprocal (``ops.div``), and both angles are
+glibc's ``atan2f`` (``ops/trig.py:atan2_f32``), which these tests hold bit
+for bit against ``jnp.arctan2`` and glibc itself. ``torch.atan2`` is not
+that function (PyTorch's CPU build computes float32 atan2 another way; the
+test prints on how many points it differs), so the port does not call it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import math
 
 import jax
@@ -28,7 +34,9 @@ from patchworkpp_tpu.ops.binning import factored_patch_counts as j_counts
 from patchworkpp_tpu.ops.tiled import build_tiled as j_build_tiled
 from patchworkpp_tpu.params import CZMGeometry as JGeom
 from patchworkpp_tpu.params import Params as JParams
+from patchworkpp_tpu_torch.ops import div, sq_sum, sqrt
 from patchworkpp_tpu_torch.ops.binning import bin_points, factored_patch_counts
+from patchworkpp_tpu_torch.ops.trig import atan2_f32
 from patchworkpp_tpu_torch.ops.segments import z_sort_key, z_sort_key_inverse
 from patchworkpp_tpu_torch.ops.tiled import build_tiled, tiled_capacity
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
@@ -78,38 +86,110 @@ def test_bins_and_counts_equal(jax_bins, seed):
     )
 
 
-def _near_boundary(pts, p: Params, geom: CZMGeometry):
-    """Rows within a hair of a ring/zone edge, a sector edge or the RNR
-    vertical-angle gate, evaluated in float64."""
-    x, y, z = (pts[:, i].astype(np.float64) for i in range(3))
-    r = np.hypot(x, y)
-    near = np.zeros(len(pts), bool)
-    for k in range(p.num_zones):
-        for j in range(p.num_rings_each_zone[k] + 1):
-            e = geom.min_ranges[k] + j * geom.ring_sizes[k]
-            near |= np.abs(r - e) <= 1e-5 * e
-    th = np.mod(np.arctan2(y, x), 2 * np.pi)
-    for k in range(p.num_zones):
-        s = geom.sector_sizes[k]
-        frac = th / s
-        near |= np.abs(frac - np.round(frac)) * s <= 1e-5
-    ver = np.degrees(np.arctan2(z, r))
-    near |= np.abs(ver - p.RNR_ver_angle_thr) <= 1e-4
-    return near
-
-
 @pytest.mark.parametrize("seed", range(5))
 def test_edge_probe_disagreements_are_boundary_points(jax_bins, seed):
-    cloud = synth_cloud(seed, exact_edges=True)
-    pts, jb, tb = _both(jax_bins, cloud)
-    n = len(cloud)
-    diff = np.zeros(n, bool)
-    for f in FIELDS:
-        diff |= np.asarray(getattr(jb, f))[:n] != getattr(tb, f).numpy()[:n]
-    near = _near_boundary(cloud, Params(), CZMGeometry.create(Params()))
-    print(f"seed {seed}: {int(diff.sum())} boundary straddler(s) "
-          f"among {int(near.sum())} boundary points")
-    assert not (diff & ~near).any(), np.flatnonzero(diff & ~near)
+    """No disagreement is left, boundary point or not: every binning output
+    equals the JAX package's on the edge probes of three clouds a seed
+    (seed, seed + 5, seed + 10: the 15 clouds of test_torch_frame.py)."""
+    for k in range(3):
+        _, jb, tb = _both(jax_bins, synth_cloud(seed + 5 * k, exact_edges=True))
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                getattr(tb, f).numpy(), np.asarray(getattr(jb, f)),
+                err_msg=f"cloud {seed + 5 * k} {f}",
+            )
+
+
+def _edge_angles():
+    """Both atan2 argument pairs of the binning, (y, x) and (z, r), over
+    every point of synth_cloud(0..14, exact_edges=True)."""
+    ys, xs = [], []
+    for seed in range(15):
+        c = synth_cloud(seed, exact_edges=True)
+        r = sqrt(sq_sum(torch.from_numpy(c[:, 0]), torch.from_numpy(c[:, 1]))).numpy()
+        ys += [c[:, 1], c[:, 2]]
+        xs += [c[:, 0], r]
+    return np.concatenate(ys), np.concatenate(xs)
+
+
+def _random_angles():
+    """200k seeded points over |x|, |y| <= 100, plus ratios y/x swept over
+    atanf's reduction intervals, their edges and both quadrant sides."""
+    rng = np.random.default_rng(7)
+    y = rng.uniform(-100, 100, 200_000).astype(np.float32)
+    x = rng.uniform(-100, 100, 200_000).astype(np.float32)
+    t = np.geomspace(1e-12, 1e12, 20_000).astype(np.float32)
+    t = np.concatenate([t, np.float32([7 / 16, 11 / 16, 19 / 16, 39 / 16, 2**25])])
+    t = np.concatenate([t, np.nextafter(t, np.float32(0)),
+                        np.nextafter(t, np.float32(np.inf))])
+    sgn = np.where(rng.uniform(size=t.shape) < 0.5, -1, 1).astype(np.float32)
+    return (np.concatenate([y, sgn * t, -t]),
+            np.concatenate([x, np.ones_like(t), np.full_like(t, -3.0)]))
+
+
+def _special_angles(subnormals: bool):
+    """Axes, signed zeros, infinities and NaN against each other and
+    against ordinary values (and, with ``subnormals``, subnormal ones)."""
+    v = [0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, 0.5, 3.0, 1e-30, 1e30, 2.0**26]
+    if subnormals:
+        v += [1e-45, -1e-45, 3e-39]
+    v = np.float32(v + [np.nan])
+    yy, xx = np.meshgrid(v, v)
+    return yy.ravel(), xx.ravel()
+
+
+def _bits_equal(a, b):
+    """Bitwise equality, with any NaN equal to any NaN."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))
+
+
+@pytest.mark.parametrize("inputs", ["edge_clouds", "random", "special"])
+def test_atan2_f32_bitwise_equal_to_jnp_arctan2(inputs):
+    y, x = {"edge_clouds": _edge_angles, "random": _random_angles,
+            "special": lambda: _special_angles(False)}[inputs]()
+    want = np.asarray(jax.jit(jnp.arctan2)(y, x))
+    got = atan2_f32(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    ok = _bits_equal(got, want)
+    assert ok.all(), (y[~ok][:5], x[~ok][:5], got[~ok][:5], want[~ok][:5])
+    other = torch.atan2(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    print(f"{inputs}: {len(y)} points bitwise equal; torch.atan2 differs "
+          f"on {int((~_bits_equal(other, want)).sum())}")
+
+
+def test_atan2_f32_equals_glibc_atan2f_with_subnormals():
+    """glibc's own atan2f through ctypes, subnormal inputs included (XLA
+    flushes those to zero; the port, like glibc, keeps them)."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.atan2f.restype = ctypes.c_float
+    libm.atan2f.argtypes = [ctypes.c_float, ctypes.c_float]
+    y, x = _special_angles(True)
+    ry, rx = _random_angles()
+    y, x = np.concatenate([y, ry[::50]]), np.concatenate([x, rx[::50]])
+    want = np.float32([libm.atan2f(float(a), float(b)) for a, b in zip(y, x)])
+    got = atan2_f32(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    ok = _bits_equal(got, want)
+    assert ok.all(), (y[~ok][:5], x[~ok][:5], got[~ok][:5], want[~ok][:5])
+
+
+def test_r_squared_and_division_round_as_xla():
+    """r^2 = fma(x, x, y*y) correctly rounded, its root, and a division by
+    a constant, bitwise against the jitted JAX expressions (XLA:CPU
+    contracts the first and turns the last into a reciprocal multiply)."""
+    ye, xe = _edge_angles()
+    rng = np.random.default_rng(3)
+    x = np.concatenate([xe, rng.uniform(-100, 100, 300_000)]).astype(np.float32)
+    y = np.concatenate([ye, rng.uniform(-100, 100, 300_000)]).astype(np.float32)
+    jr2, jr, jdiv = jax.jit(lambda x, y: (x * x + y * y, jnp.sqrt(x * x + y * y),
+                                          x / jnp.float32(0.3)))(x, y)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    r2 = sq_sum(tx, ty)
+    np.testing.assert_array_equal(r2.numpy().view(np.int32), np.asarray(jr2).view(np.int32))
+    np.testing.assert_array_equal(sqrt(r2).numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(div(tx, 0.3).numpy(), np.asarray(jdiv))
+    # the plain float32 expressions are not XLA's
+    assert ((tx * tx + ty * ty).numpy() != np.asarray(jr2)).any()
+    assert ((tx / 0.3).numpy() != np.asarray(jdiv)).any()
 
 
 def test_z_sort_key_roundtrip_and_order():

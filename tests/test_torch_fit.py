@@ -44,6 +44,7 @@ from patchworkpp_tpu_torch.ops.tiled_fit import (
 )
 from patchworkpp_tpu_torch.pipeline import build_static_tables, make_frame_fn
 from test_fuzz_parity import CAP, synth_cloud
+from test_torch_frame import _one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 5e-5, 5e-5
 PAD_COL = 15  # unused column of the 48-column table

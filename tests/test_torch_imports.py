@@ -37,11 +37,18 @@ def test_port_has_the_expected_files():
         "patchworkpp_tpu_torch/pipeline.py",
         "patchworkpp_tpu_torch/ops/tiled_fit.py",
         "patchworkpp_tpu_torch/ops/fit_kernel_grid.py",
+        "patchworkpp_tpu_torch/ops/fit_kernel.py",
+        "patchworkpp_tpu_torch/ops/nvcc.py",
+        "patchworkpp_tpu_torch/ops/trig.py",
+        "patchworkpp_tpu_torch/ops/segments.py",
+        "patchworkpp_tpu_torch/ops/moments.py",
+        "patchworkpp_tpu_torch/ops/onehot.py",
         "patchworkpp_tpu_torch/models/patchworkpp.py",
         "chip_smoke.py",
     ):
         assert want in names
-    assert (ROOT / "patchworkpp_tpu_torch" / "csrc" / "fit_grid.cu").exists()
+    for src in ("fit_grid.cu", "fit_onehot.cu", "fit_math.cuh"):
+        assert (ROOT / "patchworkpp_tpu_torch" / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
