@@ -11,8 +11,11 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    tilted noisy ground plane, walls, boxes, reflected noise below ground,
    points out of range);
 3. hold each fit kernel against its plain PyTorch version on the card and
-   on the CPU, on that scan's tiled inputs at capacity 131072 (and K1 on a
-   small cloud with num_iter=4); K2's integer columns must equal K1's;
+   on the CPU, on that scan's tiled inputs at capacity 131072; K1 also on a
+   small cloud with num_iter=4, on a crowded-patch cloud whose largest patch
+   holds more tiles than K1 keeps in shared memory (so its rows are read
+   from global memory) and on a cloud whose processed patches hold one tile
+   each; K2's integer columns must equal K1's;
 4. drive the main paths through PatchworkPP(...).estimate_ground over
    --frames state-chained frames: the default engine (K1) and
    fused="onehot" (K2), each with every launch count set to 0 just before
@@ -22,9 +25,11 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the unfused engine (fused=False) for 3 frames, labels equal to the CPU
    unfused engine's; the labels that differ between the three engines are
    printed, not asserted;
-5. time both kernels, their plain versions on the card and the frame of
-   each engine, with CUDA events after warm-up, and print the kernels JSON
-   line;
+5. time both kernels (K1 also on the crowded-patch cloud), their plain
+   versions on the card and the frame of each engine, with CUDA events
+   after warm-up; print K1's time per walk of
+   the largest patch over its tiles (kernel ms / (tiles x walks)) and the
+   kernels JSON line;
 6. print {"ok": true, "device": {...}} as the last line.
 
 With --profile, a torch.profiler window over a few frames of each engine
@@ -52,6 +57,7 @@ import numpy as np
 CAPACITY = 131072
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
+SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep's unit at the H100's top SM clock
 # f32 operations per tiled row and pass of the fit program: distance or
 # seed test (~8), 3 shifts, 15 monomial products, 10 lane-sum adds, mask
 # and LPR bookkeeping (~4). Both kernels compute the same program (K2 in
@@ -59,12 +65,9 @@ H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 # the 7 fused passes.
 FIT_OPS_PER_ROW_PASS = 40
 UNFUSED_FRAMES = 3
-# kernel vs plain version on the same inputs: both run the same float
-# operations in the same order (contraction off), so they are expected to
-# agree bit for bit; the float tolerance only allows for a card whose
-# libraries round a division or square root differently
-FIT_ATOL, FIT_RTOL = 1e-5, 1e-5
-# CPU path vs card path, adaptive state floats (same reasoning)
+# A kernel and its plain version run the same float operations in the same
+# order (contraction off), so their tables must agree bit for bit (tolerance
+# 0). CPU path vs card path, adaptive state floats: within STATE_ATOL.
 STATE_ATOL = 1e-5
 
 
@@ -152,6 +155,46 @@ def make_scan(seed: int, frame: int = 0) -> np.ndarray:
     return cloud
 
 
+def make_one_tile_scan(seed: int, per_patch: int = 64) -> np.ndarray:
+    """``per_patch`` (< 128) points in every patch of the default CZM, away
+    from the patch edges: a noisy ground plane, with a fifth of the points
+    raised up to 2 m. Every processed patch then owns exactly one tile."""
+    from patchworkpp_tpu_torch.params import CZMGeometry, Params
+
+    p = Params()
+    geom = CZMGeometry.create(p)
+    rng = np.random.default_rng([seed, 202])
+    rows = []
+    for k in range(p.num_zones):
+        nr, ns = p.num_rings_each_zone[k], p.num_sectors_each_zone[k]
+        ring = np.repeat(np.arange(nr), ns * per_patch)
+        sec = np.tile(np.repeat(np.arange(ns), per_patch), nr)
+        n = ring.size
+        r = geom.min_ranges[k] + geom.ring_sizes[k] * (ring + rng.uniform(0.15, 0.85, n))
+        th = geom.sector_sizes[k] * (sec + rng.uniform(0.15, 0.85, n))
+        z = -1.73 + 0.005 * r + rng.normal(0.0, 0.03, n)
+        z = np.where(rng.uniform(size=n) < 0.2, z + rng.uniform(0.2, 2.0, n), z)
+        rows.append(np.stack([r * np.cos(th), r * np.sin(th), z,
+                              rng.uniform(0.3, 0.9, n)], 1))
+    return np.concatenate(rows).astype(np.float32)
+
+
+def make_crowded_scan(seed: int, crowd: int = 40000) -> np.ndarray:
+    """make_one_tile_scan(seed) plus ``crowd`` points in one zone-0 patch
+    (ring 0, sector 1: r in [3.2, 7.0] m, theta in [0.45, 0.75] rad), three
+    quarters on a noisy ground plane, a quarter above it. That patch then
+    holds ~314 tiles, more than the fit kernel K1 keeps in shared memory
+    (ops/fit_kernel_grid.py CAP_TILES), so its rows are read from global
+    memory; every other processed patch holds one tile."""
+    rng = np.random.default_rng([seed, 101])
+    r = rng.uniform(3.2, 7.0, crowd)
+    th = rng.uniform(0.45, 0.75, crowd)
+    z = np.where(rng.uniform(size=crowd) < 0.75,
+                 -1.73 + rng.normal(0.0, 0.03, crowd), rng.uniform(-1.6, 0.5, crowd))
+    pts = np.stack([r * np.cos(th), r * np.sin(th), z, rng.uniform(0.3, 0.9, crowd)], 1)
+    return np.concatenate([make_one_tile_scan(seed), pts]).astype(np.float32)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -160,10 +203,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_tables(k, ref, params, label, float_tol=True):
-    """Kernel table vs plain table: integer columns equal, float columns
-    within FIT_ATOL/FIT_RTOL (only printed when not ``float_tol``), NaNs in
-    the same places. Returns max |err|."""
+def compare_tables(k, ref, params, label, exact=True):
+    """Kernel table vs plain table: integer columns equal, NaNs in the same
+    places, and, when ``exact``, every other float equal bit for bit (else
+    its largest difference is only printed). Returns max |err|."""
     import torch
 
     from patchworkpp_tpu_torch.ops.fit_kernel import OUT_GCOUNT, OUT_N
@@ -182,27 +225,35 @@ def compare_tables(k, ref, params, label, float_tol=True):
         raise AssertionError(f"{label}: NaN positions differ")
     fin = ~nan_k
     err = (k - ref).abs()[fin]
-    tol = (FIT_ATOL + FIT_RTOL * ref.abs())[fin]
-    if float_tol and bool((err > tol).any()):
+    max_err = float(err.max()) if err.numel() else 0.0
+    bitwise = bool(torch.equal(k[fin], ref[fin]))
+    if exact and not bitwise:
         worst = int(((k - ref).abs().nan_to_num(0.0)).max(dim=0).values.argmax())
         raise AssertionError(
-            f"{label}: max |err| {float(err.max())} over tolerance "
-            f"(worst column {worst}, rows differing "
-            f"{int(((k != ref) & fin).any(dim=1).sum())})"
+            f"{label}: not bit for bit, max |err| {max_err} (worst column {worst}, "
+            f"rows differing {int(((k != ref) & fin).any(dim=1).sum())})"
         )
-    bitwise = bool(torch.equal(k[fin], ref[fin]))
-    print(f"{label}: max_abs_err {float(err.max()) if err.numel() else 0.0} "
-          f"bitwise {bitwise}")
-    return float(err.max()) if err.numel() else 0.0
+    print(f"{label}: max_abs_err {max_err} bitwise {bitwise}")
+    return max_err
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``, from CUDA events around ``reps`` calls.
+    The timed calls are queued behind a device-side sleep twice as long as
+    their host time, so that a kernel shorter than its wrapper's host
+    overhead is timed on the card, not on the host."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S))
     a.record()
     for _ in range(reps):
         fn()
@@ -332,33 +383,52 @@ def main() -> int:
     print(f"scan: {len(scans[0])} points, frames {args.frames}")
 
     # ---- 3. kernel vs plain on the card, at the main path's shapes
-    frame = make_frame_fn(p, device=dev)
-    x0 = torch.zeros((CAPACITY, 4), device=dev)
-    x0[: len(scans[0])] = torch.from_numpy(scans[0]).to(dev)
-    fi = frame.fit_inputs(init_state(p, dev), x0, len(scans[0]))
+    def fit_inputs(cloud, params, capacity=CAPACITY):
+        x = torch.zeros((capacity, 4), device=dev)
+        x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
+        return make_frame_fn(params, device=dev).fit_inputs(
+            init_state(params, dev), x, len(cloud))
+
+    def patch_tiles(fi):
+        """(largest processed patch's tiles, processed tiles, processed patches)"""
+        tiles = ((fi.pad_start[1:] - fi.pad_start[:-1]) // 128)[fi.processed]
+        return int(tiles.max()), int(tiles.sum()), int(fi.processed.sum())
+
+    def check_k1(fi, params, label):
+        """K1 vs its plain version on the card and on the CPU, bit for bit."""
+        a = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates)
+        out = fkg.fused_fit_grid(*a, fi.consts, params)
+        torch.cuda.synchronize()
+        compare_tables(out, tiled_fit(*(t.cpu() for t in a), fi.consts[0].cpu(), params),
+                       params, f"K1 vs plain (cpu), {label}")
+        err = compare_tables(out, tiled_fit(*a, fi.consts[0], params), params,
+                             f"K1 vs plain (card), {label}")
+        largest, ptiles, npatch = patch_tiles(fi)
+        print(f"  {label}: {npatch} processed patches over {ptiles} tiles, largest "
+              f"{largest} tiles ({'shared memory' if largest <= fkg.CAP_TILES else 'global memory'})")
+        return out, err
+
+    fi = fit_inputs(scans[0], p)
     fit_args = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
                 fi.gates, fi.consts)
-    k_out = fkg.fused_fit_grid(*fit_args, p)
-    torch.cuda.synchronize()
-    cpu_plain = tiled_fit(*(a.cpu() for a in fit_args[:7]), fi.consts[0].cpu(), p)
-    compare_tables(k_out, cpu_plain, p, "fit kernel vs plain (cpu)")
-    plain = tiled_fit(*fit_args[:7], fi.consts[0], p)
-    max_err = compare_tables(k_out, plain, p, "fit kernel vs plain (card)")
-
-    tiles = (fi.pad_start[1:] - fi.pad_start[:-1]) // 128
-    proc_tiles = int(tiles[fi.processed].sum())
-    print(f"tiled rows {fi.xs.numel()}, tiles {fi.xs.shape[0]}, processed "
-          f"patches {int(fi.processed.sum())} over {proc_tiles} tiles, "
-          f"largest patch {int(tiles.max())} tiles")
+    k_out, max_err = check_k1(fi, p, "main scan")
+    largest, proc_tiles, _ = patch_tiles(fi)
+    if largest > fkg.CAP_TILES:
+        raise AssertionError(f"main scan's largest patch ({largest} tiles) is over "
+                             f"K1's shared-memory cap of {fkg.CAP_TILES}")
+    print(f"tiled rows {fi.xs.numel()}, tiles {fi.xs.shape[0]}")
 
     p4 = Params(num_iter=4)
-    small = scans[0][::16]
-    xs4 = torch.zeros((8192, 4), device=dev)
-    xs4[: len(small)] = torch.from_numpy(small).to(dev)
-    fi4 = make_frame_fn(p4, device=dev).fit_inputs(init_state(p4, dev), xs4, len(small))
-    a4 = (fi4.xs, fi4.ys, fi4.zs, fi4.valid_f, fi4.tile_patch, fi4.pad_start, fi4.gates)
-    compare_tables(fkg.fused_fit_grid(*a4, fi4.consts, p4),
-                   tiled_fit(*a4, fi4.consts[0], p4), p4, "fit kernel num_iter=4")
+    check_k1(fit_inputs(scans[0][::16], p4, capacity=8192), p4, "num_iter=4")
+    fi_crowd = fit_inputs(make_crowded_scan(args.seed), p)
+    crowd_tiles = patch_tiles(fi_crowd)[0]
+    if crowd_tiles <= fkg.CAP_TILES:
+        raise AssertionError(f"crowded patch has {crowd_tiles} tiles, not over {fkg.CAP_TILES}")
+    check_k1(fi_crowd, p, "crowded patch")
+    fi_one = fit_inputs(make_one_tile_scan(args.seed), p)
+    if patch_tiles(fi_one)[0] != 1:
+        raise AssertionError("one-tile cloud has a processed patch of more than one tile")
+    check_k1(fi_one, p, "one-tile patches")
 
     k2_out = fk.fused_fit(*fit_args, p)
     torch.cuda.synchronize()
@@ -368,7 +438,7 @@ def main() -> int:
                             "K2 vs plain (card)")
     # K2 and K1 compute the same program with other per-patch sums: the
     # integer columns are equal, the floats differ by ulps
-    k1k2_err = compare_tables(k2_out, k_out, p, "K2 vs K1 (card)", float_tol=False)
+    k1k2_err = compare_tables(k2_out, k_out, p, "K2 vs K1 (card)", exact=False)
 
     # ---- 4. main paths on the card vs the CPU path
     def drive(fused, frames, want):
@@ -426,6 +496,11 @@ def main() -> int:
 
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
+
+    # the crowded cloud: K1 with a patch over its shared-memory cap
+    crowd_args = (fi_crowd.xs, fi_crowd.ys, fi_crowd.zs, fi_crowd.valid_f,
+                  fi_crowd.tile_patch, fi_crowd.pad_start, fi_crowd.gates, fi_crowd.consts)
+    crowd_ms = cuda_ms(lambda: fkg.fused_fit_grid(*crowd_args, p), reps=20)
     plain_ms = cuda_ms(lambda: tiled_fit(*fit_args[:7], fi.consts[0], p), reps=5)
     k2_ms = cuda_ms(lambda: fk.fused_fit(*fit_args, p), reps=50)
     k2_plain_ms = cuda_ms(lambda: fk.fused_fit_reference(*fit_args, p), reps=3, warmup=1)
@@ -452,31 +527,32 @@ def main() -> int:
             out.append(a.elapsed_time(b))
         return st, out
 
+    frame = make_frame_fn(p, device=dev)
     state, per_frame = frame_times(frame, len(scans))
     frame_ms = float(np.median(per_frame))
     host_ms = float(np.median([r.time_taken_s for r in gpu_res[1:]]) * 1e3)
     _, per_frame_k2 = frame_times(make_frame_fn(p, device=dev, fused="onehot"), len(scans))
     frame_k2_ms = float(np.median(per_frame_k2))
     _, per_frame_unf = frame_times(make_frame_fn(p, device=dev, fused=False),
-                                   UNFUSED_FRAMES, warmup=1)
+                                   min(UNFUSED_FRAMES, len(scans)), warmup=1)
     frame_unf_ms = float(np.median(per_frame_unf))
 
     npasses, kind = fkg._pass_config(p)[:2]
     rows = 128 * proc_tiles
-    # what this design moves: every walk over a patch's tiles reads x, y, z
-    # and active (a SEEDFIT pass walks twice), plus the first write of active
+    # the per-walk unit: one walk over a patch's tiles a pass, two a SEEDFIT
+    # pass (the pass program's count; K1 skips gate-shut passes' walks)
     walks = npasses + int((kind == fkg.K_SEEDFIT).sum())
-    design_bytes = rows * (16 * walks + 4)
+    per_walk_us = kernel_ms * 1e3 / (largest * walks)
     spad, cols = k_out.shape
     nbytes = rows * 16 + 4 * (spad + 1) + 32 * spad + 32 + 4 * spad * cols
     ops = rows * npasses * FIT_OPS_PER_ROW_PASS
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
     bound_ms = max(t_bytes, t_ops) * 1e3
     print(f"fit kernel {kernel_ms:.4f} ms, plain on card {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.5f} ms ({nbytes} B, {ops} ops); the design's "
-          f"{walks} walks move {design_bytes} B ({design_bytes / H100_BYTES_PER_S * 1e3:.5f} "
-          f"ms at the HBM rate); frame median {frame_ms:.3f} ms (CUDA events), "
-          f"{host_ms:.3f} ms host median incl. copies")
+          f"bound {bound_ms:.5f} ms ({nbytes} B, {ops} ops); largest patch {largest} "
+          f"tiles x {walks} walks: {per_walk_us:.5f} us per tile-walk; crowded-patch "
+          f"cloud ({crowd_tiles} tiles, global memory) {crowd_ms:.4f} ms; frame median "
+          f"{frame_ms:.3f} ms (CUDA events), {host_ms:.3f} ms host median incl. copies")
     print(f"K2 {k2_ms:.4f} ms, plain on card {k2_plain_ms:.3f} ms, bound "
           f"{bound_ms:.5f} ms; onehot frame median {frame_k2_ms:.3f} ms, "
           f"unfused frame median {frame_unf_ms:.3f} ms (CUDA events)")
@@ -494,6 +570,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "per_walk_us": per_walk_us,
     }, {
         "name": "fit_onehot",
         "route": "cuda",
@@ -511,8 +588,8 @@ def main() -> int:
         "card": card, "build_s": build_s, "frame_ms": frame_ms,
         "host_frame_ms": host_ms, "points": len(scans[0]),
         "tiles": int(fi.xs.shape[0]), "processed_tiles": proc_tiles,
-        "largest_patch_tiles": int(tiles.max()), "frame_ms_each": per_frame,
-        "fit_design_bytes": design_bytes,
+        "largest_patch_tiles": largest, "walks": walks, "frame_ms_each": per_frame,
+        "crowded_patch_tiles": crowd_tiles, "crowded_ms": crowd_ms,
         "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
         "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
         "k1_k2_max_abs_diff": k1k2_err, **kernels,

@@ -1,7 +1,8 @@
 // Device functions shared by the port's two fit kernels (fit_grid.cu, K1,
-// and fit_onehot.cu, K2): the fixed-order tile sum and the plane fit from
-// moment sums. Each repeats the plain PyTorch version operation for
-// operation (ops.tree_sum, ops/eigen3.py, ops/trig.py,
+// and fit_onehot.cu, K2): the fixed-order tile sum (K2's; K1 sums several
+// columns at once along the same tree) and the plane fit from moment sums.
+// Each repeats the plain PyTorch version operation for operation
+// (ops.tree_sum, ops/eigen3.py, ops/trig.py,
 // ops/fit_kernel.py:plane_row_from_moments), so the kernels and their plain
 // versions agree bit for bit when built with --fmad=false.
 
@@ -108,7 +109,10 @@ __device__ void cardano_cos_pair(float r, float& c, float& c_hi) {
 }
 
 // ops/eigen3.py:eig3_plane_columns, vector part only (the unflipped unit
-// eigenvector of the smallest eigenvalue).
+// eigenvector of the smallest eigenvalue). The plain version computes the
+// separated-pair and the clustered-pair vector and selects one; here only
+// the selected one is computed, which gives the same bits (the other's
+// values reach no output) in fewer dependent steps.
 __device__ void eig3_plane(float a00, float a01, float a02, float a11,
                            float a12, float a22, float& vx, float& vy,
                            float& vz) {
@@ -134,85 +138,91 @@ __device__ void eig3_plane(float a00, float a01, float a02, float a11,
   const float e0 = q + two_p * cos_lo;
   const float e2 = q + two_p * cos_hi;
   const float e1 = 3.0f * q - e0 - e2;
-
-  // separated pair: eigenvector of e2 from the largest row cross product
-  float sx, sy, sz, nbest_s;
-  best_row_cross(a00 - e2, a01, a02, a11 - e2, a12, a22 - e2, sx, sy, sz,
-                 nbest_s);
-  const bool degen_s = nbest_s <= 1e-12f * fro2 * fro2;
-  sx = degen_s ? 0.0f : sx;
-  sy = degen_s ? 0.0f : sy;
-  sz = degen_s ? 1.0f : sz;
-  const float norm_s = sqrtf(sx * sx + sy * sy + sz * sz);
-  sx = sx / norm_s;
-  sy = sy / norm_s;
-  sz = sz / norm_s;
-
-  // clustered pair: deflation from the isolated largest root
-  float vx0, vy0, vz0, nbest0;
-  best_row_cross(a00 - e0, a01, a02, a11 - e0, a12, a22 - e0, vx0, vy0, vz0,
-                 nbest0);
-  const bool degen0 = nbest0 <= 1e-12f * fro2 * fro2;
-  const float inv0 = 1.0f / sqrtf(max_nan(nbest0, 1e-30f));
-  vx0 = vx0 * inv0;
-  vy0 = vy0 * inv0;
-  vz0 = vz0 * inv0;
-
-  const float nux = vy0 * vy0 + vz0 * vz0;
-  const float nuy = vx0 * vx0 + vz0 * vz0;
-  const bool use_x = nux >= nuy;
-  float u1x = use_x ? 0.0f : -vz0;
-  float u1y = use_x ? vz0 : 0.0f;
-  float u1z = use_x ? -vy0 : vx0;
-  const float inv1 = 1.0f / sqrtf(max_nan(max_nan(nux, nuy), 1e-30f));
-  u1x = u1x * inv1;
-  u1y = u1y * inv1;
-  u1z = u1z * inv1;
-  float u2x, u2y, u2z;
-  cross3(vx0, vy0, vz0, u1x, u1y, u1z, u2x, u2y, u2z);
-
-  const float w1x = a00 * u1x + a01 * u1y + a02 * u1z;
-  const float w1y = a01 * u1x + a11 * u1y + a12 * u1z;
-  const float w1z = a02 * u1x + a12 * u1y + a22 * u1z;
-  const float w2x = a00 * u2x + a01 * u2y + a02 * u2z;
-  const float w2y = a01 * u2x + a11 * u2y + a12 * u2z;
-  const float w2z = a02 * u2x + a12 * u2y + a22 * u2z;
-  const float t11 = u1x * w1x + u1y * w1y + u1z * w1z;
-  const float t12 = u1x * w2x + u1y * w2y + u1z * w2z;
-  const float t22 = u2x * w2x + u2y * w2y + u2z * w2z;
-
-  const float mean2 = 0.5f * (t11 + t22);
-  const float dd = 0.5f * (t11 - t22);
-  const float s2x2 = sqrtf(dd * dd + t12 * t12);
-  const float lam = mean2 - s2x2;
-  const float ca1 = t12, ca2 = lam - t11;
-  const float cb1 = lam - t22, cb2 = t12;
-  const float na2 = ca1 * ca1 + ca2 * ca2;
-  const float nb2 = cb1 * cb1 + cb2 * cb2;
-  const bool use_ca = na2 >= nb2;
-  float g1 = use_ca ? ca1 : cb1;
-  float g2 = use_ca ? ca2 : cb2;
-  const float wn2 = max_nan(na2, nb2);
-  const bool degen2 = wn2 <= 1e-12f * fro2;
-  const float invw = 1.0f / sqrtf(max_nan(wn2, 1e-30f));
-  g1 = g1 * invw;
-  g2 = g2 * invw;
-
-  float dx = g1 * u1x + g2 * u2x;
-  float dy = g1 * u1y + g2 * u2y;
-  float dz = g1 * u1z + g2 * u2z;
-  const float invn = 1.0f / sqrtf(max_nan(dx * dx + dy * dy + dz * dz, 1e-30f));
-  dx = dx * invn;
-  dy = dy * invn;
-  dz = dz * invn;
-
-  const bool degen_d = degen0 || degen2;
-  dx = degen_d ? 0.0f : dx;
-  dy = degen_d ? 0.0f : dy;
-  dz = degen_d ? 1.0f : dz;
-
   const float fro = sqrtf(fro2);
   const bool clustered = (e1 - e2) <= 1e-2f * fro;
+
+  // separated pair: eigenvector of e2 from the largest row cross product
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  if (!clustered) {
+    float nbest_s;
+    best_row_cross(a00 - e2, a01, a02, a11 - e2, a12, a22 - e2, sx, sy, sz,
+                   nbest_s);
+    const bool degen_s = nbest_s <= 1e-12f * fro2 * fro2;
+    sx = degen_s ? 0.0f : sx;
+    sy = degen_s ? 0.0f : sy;
+    sz = degen_s ? 1.0f : sz;
+    const float norm_s = sqrtf(sx * sx + sy * sy + sz * sz);
+    sx = sx / norm_s;
+    sy = sy / norm_s;
+    sz = sz / norm_s;
+  }
+
+  // clustered pair: deflation from the isolated largest root
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (clustered) {
+    float vx0, vy0, vz0, nbest0;
+    best_row_cross(a00 - e0, a01, a02, a11 - e0, a12, a22 - e0, vx0, vy0, vz0,
+                   nbest0);
+    const bool degen0 = nbest0 <= 1e-12f * fro2 * fro2;
+    const float inv0 = 1.0f / sqrtf(max_nan(nbest0, 1e-30f));
+    vx0 = vx0 * inv0;
+    vy0 = vy0 * inv0;
+    vz0 = vz0 * inv0;
+
+    const float nux = vy0 * vy0 + vz0 * vz0;
+    const float nuy = vx0 * vx0 + vz0 * vz0;
+    const bool use_x = nux >= nuy;
+    float u1x = use_x ? 0.0f : -vz0;
+    float u1y = use_x ? vz0 : 0.0f;
+    float u1z = use_x ? -vy0 : vx0;
+    const float inv1 = 1.0f / sqrtf(max_nan(max_nan(nux, nuy), 1e-30f));
+    u1x = u1x * inv1;
+    u1y = u1y * inv1;
+    u1z = u1z * inv1;
+    float u2x, u2y, u2z;
+    cross3(vx0, vy0, vz0, u1x, u1y, u1z, u2x, u2y, u2z);
+
+    const float w1x = a00 * u1x + a01 * u1y + a02 * u1z;
+    const float w1y = a01 * u1x + a11 * u1y + a12 * u1z;
+    const float w1z = a02 * u1x + a12 * u1y + a22 * u1z;
+    const float w2x = a00 * u2x + a01 * u2y + a02 * u2z;
+    const float w2y = a01 * u2x + a11 * u2y + a12 * u2z;
+    const float w2z = a02 * u2x + a12 * u2y + a22 * u2z;
+    const float t11 = u1x * w1x + u1y * w1y + u1z * w1z;
+    const float t12 = u1x * w2x + u1y * w2y + u1z * w2z;
+    const float t22 = u2x * w2x + u2y * w2y + u2z * w2z;
+
+    const float mean2 = 0.5f * (t11 + t22);
+    const float dd = 0.5f * (t11 - t22);
+    const float s2x2 = sqrtf(dd * dd + t12 * t12);
+    const float lam = mean2 - s2x2;
+    const float ca1 = t12, ca2 = lam - t11;
+    const float cb1 = lam - t22, cb2 = t12;
+    const float na2 = ca1 * ca1 + ca2 * ca2;
+    const float nb2 = cb1 * cb1 + cb2 * cb2;
+    const bool use_ca = na2 >= nb2;
+    float g1 = use_ca ? ca1 : cb1;
+    float g2 = use_ca ? ca2 : cb2;
+    const float wn2 = max_nan(na2, nb2);
+    const bool degen2 = wn2 <= 1e-12f * fro2;
+    const float invw = 1.0f / sqrtf(max_nan(wn2, 1e-30f));
+    g1 = g1 * invw;
+    g2 = g2 * invw;
+
+    dx = g1 * u1x + g2 * u2x;
+    dy = g1 * u1y + g2 * u2y;
+    dz = g1 * u1z + g2 * u2z;
+    const float invn = 1.0f / sqrtf(max_nan(dx * dx + dy * dy + dz * dz, 1e-30f));
+    dx = dx * invn;
+    dy = dy * invn;
+    dz = dz * invn;
+
+    const bool degen_d = degen0 || degen2;
+    dx = degen_d ? 0.0f : dx;
+    dy = degen_d ? 0.0f : dy;
+    dz = degen_d ? 1.0f : dz;
+  }
+
   vx = clustered ? dx : sx;
   vy = clustered ? dy : sy;
   vz = clustered ? dz : sz;

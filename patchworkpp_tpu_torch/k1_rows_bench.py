@@ -1,0 +1,83 @@
+"""Times the fit kernel K1 (csrc/fit_grid.cu) as built against the same
+kernel with every patch's rows read from global memory (its fit_patch<false>
+branch, which the built kernel takes only for patches over kCapTiles), on
+chip_smoke.py's main scan, one-tile and crowded-patch clouds.
+
+Both builds are first held bit for bit against the plain version; then each
+is timed with chip_smoke.cuda_ms (device time, calls queued behind a device
+sleep) in the order A B B A, three rounds. Needs one CUDA card and nvcc.
+
+Usage, from the repo root: python3 -m patchworkpp_tpu_torch.k1_rows_bench
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from patchworkpp_tpu_torch import Params, init_state
+from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+from patchworkpp_tpu_torch.ops import nvcc
+from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
+from patchworkpp_tpu_torch.pipeline import make_frame_fn
+
+SMEM_TEST = "  if (T <= kCapTiles) {"
+
+
+def build_global_only():
+    """K1 with the shared-memory branch never taken, built beside the others."""
+    out = nvcc.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    src = fkg.SOURCE.read_text()
+    if SMEM_TEST not in src:
+        raise RuntimeError(f"{fkg.SOURCE.name} no longer holds {SMEM_TEST.strip()!r}")
+    (out / "fit_grid.cu").write_text(src.replace(SMEM_TEST, "  if (false) {"))
+    shutil.copy(nvcc.CSRC / "fit_math.cuh", out / "fit_math.cuh")
+    return nvcc.build(out / "fit_grid.cu", "ppk_fit_grid", fkg.ARGTYPES)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_rows_bench needs a CUDA card")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip())
+    dev, p = torch.device("cuda"), Params()
+    libs = {"A": fkg.build(), "B": build_global_only()}
+    built = fkg.build
+
+    def run(which, a):
+        fkg.build = lambda: libs[which]
+        try:
+            return fkg.fused_fit_grid(*a, p)
+        finally:
+            fkg.build = built
+
+    for name, cloud in (("main scan", cs.make_scan(0)),
+                        ("one-tile", cs.make_one_tile_scan(0)),
+                        ("crowded", cs.make_crowded_scan(0))):
+        x = torch.zeros((cs.CAPACITY, 4), device=dev)
+        x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
+        fi = make_frame_fn(p, device=dev).fit_inputs(init_state(p, dev), x, len(cloud))
+        a = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
+             fi.consts)
+        ref = tiled_fit(*a[:7], fi.consts[0], p)
+        for which in libs:
+            cs.compare_tables(run(which, a), ref, p, f"{name}, {which} vs plain")
+        times = {"A": [], "B": []}
+        for _ in range(3):
+            for which in "ABBA":
+                times[which].append(cs.cuda_ms(lambda: run(which, a), reps=200, warmup=5))
+        for which, what in (("A", "as built"), ("B", "every patch from global memory")):
+            v = times[which]
+            print(f"{name}: K1 {what}: median {np.median(v):.5f} ms "
+                  f"(min {min(v):.5f}, max {max(v):.5f}, {len(v)} timings)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -29,6 +29,20 @@ def div(a: torch.Tensor, c: float) -> torch.Tensor:
     return a * float(r)
 
 
+def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every subnormal value replaced by a zero of its sign.
+
+    XLA:CPU runs with flush-to-zero, so a subnormal result of the JAX
+    package's ``atan2`` reads as 0 in the next step (a point at (3, 3e-39)
+    gets theta 0 and wraps to 2*pi, sector 15); glibc's ``atan2f``, and so
+    ``ops/trig.py:atan2_f32``, return the subnormal itself. Flushing the
+    result, not the operands, gives the JAX package's bins: with flushed
+    operands a point at x = -1e-45 on the +y axis gets pi/2, where XLA
+    keeps 1.5707962513. Three elementwise ops: ``t * 0`` keeps the sign,
+    and NaN and infinities pass."""
+    return t * (t.abs() >= 2.0**-126)
+
+
 def sq_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x*x + y*y`` in float32 as XLA:CPU computes it: contracted into
     ``fma(x, x, y*y)``, one rounding of the exact ``x*x`` plus ``y*y``.
@@ -39,7 +53,8 @@ def sq_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     float32 (Boldo and Melquiond, "Emulation of FMA and correctly rounded
     sums", IEEE TC 2008). Separate tensor ops, so the same bits on every
     device. The inputs are finite and of either sign; the sum is >= 0."""
-    a = x.double() * x.double()
+    xd = x.double()
+    a = xd * xd
     b = (y * y).double()
     s = a + b
     bb = s - a
@@ -60,14 +75,14 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     one exact test against the neighbouring midpoints, squared in float64
     (25-bit values, exact products), moves it to the correctly rounded one.
     """
-    s = torch.sqrt(x.double()).float()
     xd = x.double()
+    s = torch.sqrt(xd).float()
     inf = torch.full_like(s, float("inf"))
     up, dn = torch.nextafter(s, inf), torch.nextafter(s, -inf)
     sd = s.double()
     hi = (sd + up.double()) * 0.5
     lo = (sd + dn.double()) * 0.5
-    fix = (xd > 0) & torch.isfinite(xd)
+    fix = (xd > 0) & (xd < float("inf"))  # positive and finite
     s = torch.where(fix & (xd > hi * hi), up, s)
     return torch.where(fix & (xd < lo * lo), dn, s)
 
@@ -77,9 +92,9 @@ def tree_sum(v: torch.Tensor) -> torch.Tensor:
 
     The axis is zero-padded to a power of two and halved in place
     (``v[..., :h] + v[..., h:]``) until one column is left. For a 128-wide
-    tile this is exactly the order of the fit kernel's warp reduction
-    (csrc/fit_grid.cu ``tile_sum``), so the plain version and the kernel
-    give the same bits on every device; ``torch.sum`` leaves its order to
+    tile this is exactly the order of the fit kernels' warp reductions
+    (csrc/fit_math.cuh ``tile_sum``, and ``Fold`` in csrc/fit_grid.cu), so
+    the plain versions and the kernels give the same bits on every device; ``torch.sum`` leaves its order to
     the backend."""
     n = v.shape[-1]
     width = 1 << max(n - 1, 0).bit_length()

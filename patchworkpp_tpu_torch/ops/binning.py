@@ -13,7 +13,9 @@ ring or sector edge lands in the same bin in both packages and on the card:
 - a division by a constant is a multiply by the constant's float32
   reciprocal, as XLA rewrites it (``ops.div``);
 - both angles are glibc's ``atan2f``, which XLA:CPU calls
-  (``ops/trig.py:atan2_f32``, built from float32 tensor ops).
+  (``ops/trig.py:atan2_f32``, built from float32 tensor ops), with a
+  subnormal result flushed to a zero of its sign, as XLA:CPU's
+  flush-to-zero reads it (``ops.flush_subnormal``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from patchworkpp_tpu_torch.ops import div, f32, sq_sum, sqrt
+from patchworkpp_tpu_torch.ops import div, f32, flush_subnormal, sq_sum, sqrt
 from patchworkpp_tpu_torch.ops.trig import atan2_f32
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 
@@ -62,7 +64,7 @@ def bin_points(
     r = sqrt(sq_sum(x, y))
 
     if p.enable_RNR:
-        ver_deg = atan2_f32(z, r) * f32(180.0 / math.pi)
+        ver_deg = flush_subnormal(atan2_f32(z, r)) * f32(180.0 / math.pi)
         noise = (
             (ver_deg < f32(p.RNR_ver_angle_thr))
             & (z < -sensor_height - f32(0.8))
@@ -74,8 +76,10 @@ def bin_points(
 
     in_range = (r <= f32(p.max_range)) & (r > f32(p.min_range)) & valid
 
+    # flush_subnormal(theta), then wrap theta <= 0 by 2*pi, in one op: a
+    # subnormal theta plus 2*pi rounds to 2*pi, as the flushed zero does
     theta = atan2_f32(y, x)
-    theta = torch.where(theta > 0, theta, theta + f32(2 * math.pi))
+    theta = torch.where(theta >= 2.0**-126, theta, theta + f32(2 * math.pi))
 
     lo = list(geom.min_ranges)
     hi = lo[1:] + [p.max_range]

@@ -169,18 +169,22 @@ def fused_fit_reference(
     )
 
 
+_ptr, _i32, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ppk_fit_onehot's parameters, in order
+ARGTYPES = (
+    _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # xs ys zs valid pad gates consts prog
+    _i32,                                            # npasses
+    _ptr, _ptr, _ptr, _ptr,                          # active part cnt (scratch), out
+    _i32, _i32, _i32,                                # nt spad num_lpr
+    _flt, _flt,                                      # th_dist_v uprightness_thr
+    _ptr,                                            # stream
+)
+
+
 @functools.lru_cache(maxsize=1)
 def build() -> ctypes.CDLL:
     """Compile csrc/fit_onehot.cu (once per source content) and load it."""
-    ptr, i32, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return nvcc.build(SOURCE, "ppk_fit_onehot", [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # xs ys zs valid pad gates consts prog
-        i32,                                      # npasses
-        ptr, ptr, ptr, ptr,                       # active part cnt (scratch), out
-        i32, i32, i32,                            # nt spad num_lpr
-        flt, flt,                                 # th_dist_v uprightness_thr
-        ptr,                                      # stream
-    ])
+    return nvcc.build(SOURCE, "ppk_fit_onehot", ARGTYPES)
 
 
 def build_log() -> str:

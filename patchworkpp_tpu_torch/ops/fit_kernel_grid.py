@@ -7,6 +7,12 @@ is ``csrc/fit_grid.cu``, built by ``ops/nvcc.py`` at the first call on a
 CUDA tensor. On a CPU tensor the wrapper runs the plain version
 (``ops/tiled_fit.py:tiled_fit``); on a CUDA tensor it launches the kernel or
 raises.
+
+The kernel runs one CTA of 16 warps per patch and keeps a patch of at most
+``CAP_TILES`` tiles in shared memory; a longer patch reads its rows from
+global memory, and keeps its per-row active bits in a small global scratch
+that the wrapper allocates. Which patch is which is decided on the card, so
+the call reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -24,6 +30,19 @@ from patchworkpp_tpu_torch.params import Params
 K_SEEDFIT, K_FITDIST = 0, 1
 LANE = 128
 SOURCE = nvcc.CSRC / "fit_grid.cu"
+# kCapTiles of the source: the longest patch (in 128-row tiles) whose rows
+# the kernel keeps in shared memory
+CAP_TILES = 64
+_ptr, _i32, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ppk_fit_grid's parameters, in order
+ARGTYPES = (
+    _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # xs ys zs valid pad gates consts prog
+    _i32,                                            # npasses
+    _ptr, _ptr,                                      # mask (scratch), out
+    _i32, _i32, _i32, _i32, _i32, _i32,              # nt spad out_cols snap carry2 num_lpr
+    _flt, _flt,                                      # th_dist_v uprightness_thr
+    _ptr,                                            # stream
+)
 
 
 def _pass_config(p: Params):
@@ -62,15 +81,7 @@ def _pass_config(p: Params):
 @functools.lru_cache(maxsize=1)
 def build() -> ctypes.CDLL:
     """Compile csrc/fit_grid.cu (once per source content) and load it."""
-    ptr, i32, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return nvcc.build(SOURCE, "ppk_fit_grid", [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # xs ys zs valid pad gates consts prog
-        i32,                                      # npasses
-        ptr, ptr,                                 # active (scratch), out
-        i32, i32, i32, i32, i32, i32,             # nt spad out_cols snap carry2 num_lpr
-        flt, flt,                                 # th_dist_v uprightness_thr
-        ptr,                                      # stream
-    ])
+    return nvcc.build(SOURCE, "ppk_fit_grid", ARGTYPES)
 
 
 def build_log() -> str:
@@ -93,11 +104,13 @@ def fused_fit_grid(
     """Per-patch fit table of the tiled cloud.
 
     Args:
-      xs, ys, zs, valid_f: (NT, 128) f32 tiled point data.
+      xs, ys, zs, valid_f: (NT, 128) f32 tiled point data; ``valid_f``
+        holds only 0 and 1 (the kernel keeps ``active`` as one bit a row).
       tile_patch: (NT,) or (NT, 1) int32 patch of each tile (read by the
         plain version; the kernel finds each patch's tiles from pad_start).
       pad_start: (S+1,) int32 tile-aligned run starts.
-      gates: (S, 8) f32 [processed, shift_x, shift_y, shift_z, zone0, 0..].
+      gates: (S, 8) f32 [processed, shift_x, shift_y, shift_z, zone0, 0..];
+        ``processed`` is 0 or 1.
       consts: (8,) f32 [margin_thr, 0..].
 
     Returns:
@@ -120,18 +133,23 @@ def fused_fit_grid(
     nvcc.check("pad_start", pad_start, torch.int32, (spad + 1,), dev)
     nvcc.check("gates", gates, torch.float32, (spad, 8), dev)
     nvcc.check("consts", consts, torch.float32, (8,), dev)
+    for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
+        if t.data_ptr() % 16:  # the bulk copy's alignment
+            raise ValueError(f"{name} must be 16-byte aligned")
 
     lib = build()
     prog = _program(params, dev)
     snap_off, carry2_off, out_cols = out_layout(params)
     out = torch.empty((spad, out_cols), dtype=torch.float32, device=dev)
-    active = torch.empty((nt, LANE), dtype=torch.float32, device=dev)
+    # active bits of patches longer than CAP_TILES (the others keep theirs
+    # in shared memory)
+    mask = torch.empty((nt, 4), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ppk_fit_grid(
         xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), valid_f.data_ptr(),
         pad_start.data_ptr(), gates.data_ptr(), consts.data_ptr(),
         prog.data_ptr(), prog.shape[1],
-        active.data_ptr(), out.data_ptr(),
+        mask.data_ptr(), out.data_ptr(),
         nt, spad, out_cols, snap_off, carry2_off, params.num_lpr,
         f32(params.th_dist_v), f32(params.uprightness_thr),
         stream,

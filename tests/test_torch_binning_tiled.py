@@ -157,6 +157,47 @@ def test_atan2_f32_bitwise_equal_to_jnp_arctan2(inputs):
           f"on {int((~_bits_equal(other, want)).sum())}")
 
 
+SUBNORMAL_GRID_VALUES = (
+    0.0, -0.0, 1.0, -1.0, 0.5, 3.0, 5.0, -5.0, 7.0, 20.0, -20.0, 1e-30,
+    1e-45, -1e-45, 3e-39, -3e-39, 1e-40, -1e-40, 1.1754942e-38,
+    -1.1754942e-38, 2.0**-126, 1e-38, 4e-38,
+)
+SUBNORMAL_GRID_Z = (-1.7, 1e-40, -3e-39, -2.6)
+
+
+def subnormal_grid() -> np.ndarray:
+    """Every (x, y) pair of 23 values (zeros, ordinary, subnormal and
+    smallest-normal coordinates) at 4 z values: 2,116 points, intensity 0.1
+    (under the RNR threshold, so the z = -2.6 rows meet RNR's angle test)."""
+    v = np.float32(SUBNORMAL_GRID_VALUES)
+    xx, yy, zz = np.meshgrid(v, v, np.float32(SUBNORMAL_GRID_Z), indexing="ij")
+    return np.stack([xx.ravel(), yy.ravel(), zz.ravel(),
+                     np.full(xx.size, 0.1, np.float32)], 1)
+
+
+def test_subnormal_coordinates_bin_as_jax():
+    """XLA:CPU flushes a subnormal atan2 result to zero; the port flushes
+    the results of its two atan2_f32 calls (not their operands), so every
+    output equals the JAX package's, e.g. (3, 3e-39) wraps to sector 15."""
+    cloud = subnormal_grid()
+    assert len(cloud) == 2116
+    cap = 4096
+    pts = np.zeros((cap, 4), np.float32)
+    pts[: len(cloud)] = cloud
+    jp = JParams()
+    jb = jax.jit(lambda a, n, sh: j_bin_points(a, n, sh, jp, JGeom.create(jp)))(
+        jnp.asarray(pts), jnp.int32(len(cloud)), jnp.float32(SH))
+    p = Params()
+    tb = bin_points(torch.from_numpy(pts), len(cloud), torch.tensor(SH), p,
+                    CZMGeometry.create(p))
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(tb, f).numpy(), np.asarray(getattr(jb, f)),
+                                      err_msg=f)
+    i = np.flatnonzero((cloud[:, 0] == 3.0) & (cloud[:, 1] == np.float32(3e-39))
+                       & (cloud[:, 2] == np.float32(-1.7)))[0]
+    assert int(tb.sector[i]) == p.num_sectors_each_zone[0] - 1
+
+
 def test_atan2_f32_equals_glibc_atan2f_with_subnormals():
     """glibc's own atan2f through ctypes, subnormal inputs included (XLA
     flushes those to zero; the port, like glibc, keeps them)."""

@@ -13,11 +13,22 @@ The tolerance is atol 5e-5 + rtol 5e-5, under a tenth of the 0.125 m
 th_dist margin any label decision reads, and the worst difference is
 printed.
 
+The crowded-patch and one-tile clouds of ``chip_smoke.py`` (capacity
+131072) drive the kernel's two row sources on the card (a patch longer than
+its shared-memory cap reads global memory); here their plain fits are held
+against JAX's under the same tolerance. Two binding tests check what no CPU
+run of a kernel can: that each wrapper's ctypes argument types follow the
+``extern "C"`` signature (a pointer passed as an int is cut to 32 bits), and
+that the wrapper's ``CAP_TILES`` is the source's ``kCapTiles``.
+
 The test marked ``gpu`` holds the CUDA kernel against the plain version on
 the card; it skips where there is no CUDA device.
 """
 
 from __future__ import annotations
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +43,9 @@ from patchworkpp_tpu.ops.tiled_fit import out_layout as j_out_layout
 from patchworkpp_tpu.ops.tiled_fit import tiled_fit as j_tiled_fit
 from patchworkpp_tpu.params import Params as JParams
 from patchworkpp_tpu.pipeline import FrameComm
+from chip_smoke import CAPACITY, make_crowded_scan, make_one_tile_scan
 from patchworkpp_tpu_torch import CZMGeometry, Params, init_state
+from patchworkpp_tpu_torch.ops import fit_kernel as fk
 from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
 from patchworkpp_tpu_torch.ops.fit_kernel import OUT_GCOUNT, OUT_N
 from patchworkpp_tpu_torch.ops.tiled_fit import (
@@ -50,14 +63,21 @@ ATOL, RTOL = 5e-5, 5e-5
 PAD_COL = 15  # unused column of the 48-column table
 
 
-def _fit_inputs(seed: int, p: Params, exact_edges: bool = False):
-    """The port frame's fit inputs for synth_cloud(seed) at capacity 8192."""
-    cloud = synth_cloud(seed, exact_edges=exact_edges)
-    pts = np.zeros((CAP, 4), np.float32)
+def _cloud_fit_inputs(cloud: np.ndarray, p: Params, capacity: int):
+    pts = np.zeros((capacity, 4), np.float32)
     pts[: len(cloud)] = cloud
     return make_frame_fn(p, device="cpu").fit_inputs(
         init_state(p), torch.from_numpy(pts), len(cloud)
     )
+
+
+def _fit_inputs(seed: int, p: Params, exact_edges: bool = False):
+    """The port frame's fit inputs for synth_cloud(seed) at capacity 8192."""
+    return _cloud_fit_inputs(synth_cloud(seed, exact_edges=exact_edges), p, CAP)
+
+
+def _processed_tiles(fi) -> torch.Tensor:
+    return ((fi.pad_start[1:] - fi.pad_start[:-1]) // 128)[fi.processed]
 
 
 def _plain(fi, p: Params) -> np.ndarray:
@@ -186,6 +206,53 @@ def test_plain_fit_num_iter4_matches_jax_tiled_fit(jax_tiled_fit, seed):
     _compare(_run_jax(jax_tiled_fit(4), fi), out, p, label=f"num_iter=4 seed {seed}")
 
 
+@pytest.mark.parametrize("cloud", ["crowded", "one_tile"])
+def test_plain_fit_matches_jax_on_kernel_branch_clouds(jax_tiled_fit, cloud):
+    """chip_smoke.py's crowded-patch cloud (one patch longer than the
+    kernel's shared-memory cap) and one-tile cloud (every processed patch
+    one tile), at capacity 131072."""
+    p = Params()
+    make = {"crowded": make_crowded_scan, "one_tile": make_one_tile_scan}[cloud]
+    fi = _cloud_fit_inputs(make(0), p, CAPACITY)
+    tiles = _processed_tiles(fi)
+    if cloud == "crowded":
+        assert int(tiles.max()) > fkg.CAP_TILES
+    else:
+        assert int(tiles.max()) == 1 and len(tiles) > 400
+    _compare(_run_jax(jax_tiled_fit(3), fi), _plain(fi, p), p, label=cloud)
+
+
+def _extern_c_argtypes(source):
+    """ctypes types of the ``extern "C"`` entry point's parameters, in
+    order: c_void_p for a pointer, c_int for int, c_float for float."""
+    m = re.search(r'extern "C" int \w+\(([^)]*)\)', source.read_text())
+    assert m, source
+    out = []
+    for param in m.group(1).split(","):
+        ctype = re.sub(r"\w+$", "", param.strip()).strip()  # drop the name
+        if ctype.endswith("*"):
+            out.append(ctypes.c_void_p)
+        elif ctype == "int":
+            out.append(ctypes.c_int)
+        elif ctype == "float":
+            out.append(ctypes.c_float)
+        else:
+            raise AssertionError(f"{source.name}: no ctypes rule for {param!r}")
+    return out
+
+
+@pytest.mark.parametrize("module", [fkg, fk], ids=["fit_grid", "fit_onehot"])
+def test_ctypes_argtypes_follow_extern_c_signature(module):
+    want = _extern_c_argtypes(module.SOURCE)
+    assert len(want) > 15
+    assert list(module.ARGTYPES) == want
+
+
+def test_cap_tiles_is_the_kernel_constant():
+    m = re.search(r"constexpr int kCapTiles = (\d+);", fkg.SOURCE.read_text())
+    assert m and int(m.group(1)) == fkg.CAP_TILES
+
+
 def test_plain_fit_matches_grid_kernel_interpret():
     """The Pallas grid kernel (interpret mode) leaves its pad column and
     the rows of unprocessed patches unspecified (the frame never reads
@@ -230,14 +297,19 @@ def test_wrapper_refuses_other_devices():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("num_iter", [3, 4])
-def test_cuda_kernel_matches_plain_on_card(num_iter):
+@pytest.mark.parametrize("num_iter,cloud", [(3, "seed2"), (4, "seed2"), (3, "crowded")])
+def test_cuda_kernel_matches_plain_on_card(num_iter, cloud):
     """Kernel vs plain version on the same CUDA tensors: the same float
-    operations in the same order (contraction off), so bit for bit."""
+    operations in the same order (contraction off), so bit for bit; the
+    crowded cloud's longest patch reads its rows from global memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     p = Params(num_iter=num_iter)
-    fi = _fit_inputs(2, p)
+    if cloud == "crowded":
+        fi = _cloud_fit_inputs(make_crowded_scan(0), p, CAPACITY)
+        assert int(_processed_tiles(fi).max()) > fkg.CAP_TILES
+    else:
+        fi = _fit_inputs(2, p)
     dev = torch.device("cuda")
     a = [t.to(dev) for t in (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch,
                              fi.pad_start, fi.gates, fi.consts)]

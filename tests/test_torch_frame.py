@@ -126,6 +126,45 @@ def test_edge_probe_labels_match_without_straddlers(jax_frame, torch_frame, seed
         _assert_state_close(js, ts, label)
 
 
+def _with_subnormal_patch(seed: int) -> np.ndarray:
+    """synth_cloud(seed) with zone 0's ring 0, sectors 0 and 15 (the two
+    sides of the +x axis) emptied, and a flat ground patch of 48 points at
+    x in [3, 7] m and y = 3e-39, 1e-40 or 1e-45 m put on that axis. Their
+    atan2(y, x) is subnormal: XLA:CPU reads it as 0 and wraps the points to
+    sector 15, so that sector alone is processed."""
+    cloud = synth_cloud(seed, exact_edges=False)
+    r = np.hypot(cloud[:, 0], cloud[:, 1])
+    th = np.mod(np.arctan2(cloud[:, 1], cloud[:, 0]), 2 * np.pi)
+    near_axis = (r < 8.0) & ((th < 2 * np.pi / 16 + 0.05) | (th > 2 * np.pi * 15 / 16 - 0.05))
+    rng = np.random.default_rng(seed)
+    x = np.tile(np.linspace(3.0, 7.0, 16), 3)
+    y = np.repeat(np.float32([3e-39, 1e-40, 1e-45]), 16)
+    z = -1.72 + rng.normal(0.0, 0.02, 48)
+    patch = np.stack([x, y, z, np.full(48, 0.5)], 1).astype(np.float32)
+    assert patch[0, 1] == np.float32(3e-39) and patch[0, 1] < 2.0**-126
+    return np.concatenate([cloud[~near_axis], patch]).astype(np.float32)
+
+
+def test_subnormal_points_label_as_jax(jax_frame, torch_frame):
+    """Points with a subnormal coordinate land in the JAX package's patch,
+    and the frame's labels, processed patches and state follow, fresh and
+    adapted."""
+    js, ts = jstate.init_state(JParams()), init_state(Params())
+    for seed in (0, 5):
+        cloud = _with_subnormal_patch(seed)
+        pts = _padded(cloud)
+        js, jr = jax_frame(js, jnp.asarray(pts), jnp.int32(len(cloud)))
+        ts, tr = torch_frame(ts, torch.from_numpy(pts), len(cloud))
+        label = f"subnormal patch, seed {seed}"
+        np.testing.assert_array_equal(tr.ground_mask.numpy(), np.asarray(jr.ground_mask),
+                                      err_msg=label)
+        np.testing.assert_array_equal(tr.patch_processed.numpy(),
+                                      np.asarray(jr.patch_processed), err_msg=label)
+        # zone 0, ring 0: sector 15 holds the 48 points, sector 0 none
+        assert bool(tr.patch_processed[15]) and not bool(tr.patch_processed[0]), label
+        _assert_state_close(js, ts, label)
+
+
 def test_sequence_matches_frame_loop(torch_frame):
     p = Params()
     clouds = _chain(1)
