@@ -5,17 +5,19 @@ Phases, in order; any failure raises and exits nonzero before the last line:
 
 1. print the card (nvidia-smi name, power limit) and build the two CUDA fit
    kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu and K2 from
-   csrc/fit_onehot.cu, with one nvcc each started together (build time,
-   ptxas reports);
+   csrc/fit_onehot.cu (both the fit program of csrc/fit_program.cuh, with
+   their own per-patch sums), with one nvcc each started together (build
+   time, ptxas reports);
 2. make a synthetic KITTI-scale scan from --seed (64 beams over 360 deg, a
    tilted noisy ground plane, walls, boxes, reflected noise below ground,
    points out of range);
 3. hold each fit kernel against its plain PyTorch version on the card and
-   on the CPU, on that scan's tiled inputs at capacity 131072; K1 also on a
-   small cloud with num_iter=4, on a crowded-patch cloud whose largest patch
-   holds more tiles than K1 keeps in shared memory (so its rows are read
-   from global memory) and on a cloud whose processed patches hold one tile
-   each; K2's integer columns must equal K1's;
+   on the CPU, on that scan's tiled inputs at capacity 131072, on a
+   crowded-patch cloud whose largest patch holds more tiles than the kernels
+   keep in shared memory (so it is staged chunk by chunk at every walk) and
+   on a cloud whose processed patches hold one tile each; K1 also on a
+   small cloud with num_iter=4 (K2 refuses it); on each cloud K2's integer
+   columns must equal K1's;
 4. drive the main paths through PatchworkPP(...).estimate_ground over
    --frames state-chained frames: the default engine (K1) and
    fused="onehot" (K2), each with every launch count set to 0 just before
@@ -25,7 +27,7 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the unfused engine (fused=False) for 3 frames, labels equal to the CPU
    unfused engine's; the labels that differ between the three engines are
    printed, not asserted;
-5. time both kernels (K1 also on the crowded-patch cloud), their plain
+5. time both kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
    after warm-up; print K1's time per walk of
    the largest patch over its tiles (kernel ms / (tiles x walks)) and the
@@ -60,14 +62,14 @@ H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep's unit at the H100's top SM clock
 # f32 operations per tiled row and pass of the fit program: distance or
 # seed test (~8), 3 shifts, 15 monomial products, 10 lane-sum adds, mask
-# and LPR bookkeeping (~4). Both kernels compute the same program (K2 in
-# 15 unrolled passes, K1 in 7 fused ones), so both are held to the work of
-# the 7 fused passes.
+# and LPR bookkeeping (~4). Both kernels run the same 7 fused passes, so
+# both are held to that work.
 FIT_OPS_PER_ROW_PASS = 40
 UNFUSED_FRAMES = 3
 # A kernel and its plain version run the same float operations in the same
-# order (contraction off), so their tables must agree bit for bit (tolerance
-# 0). CPU path vs card path, adaptive state floats: within STATE_ATOL.
+# order (nvcc's contraction off, the plain version's fused multiply-adds as
+# explicit ones), so their tables must agree bit for bit (tolerance 0).
+# CPU path vs card path, adaptive state floats: within STATE_ATOL.
 STATE_ATOL = 1e-5
 
 
@@ -404,8 +406,10 @@ def main() -> int:
         err = compare_tables(out, tiled_fit(*a, fi.consts[0], params), params,
                              f"K1 vs plain (card), {label}")
         largest, ptiles, npatch = patch_tiles(fi)
+        rows = ("resident in shared memory" if largest <= fkg.CAP_TILES
+                else "staged in chunks at every walk")
         print(f"  {label}: {npatch} processed patches over {ptiles} tiles, largest "
-              f"{largest} tiles ({'shared memory' if largest <= fkg.CAP_TILES else 'global memory'})")
+              f"{largest} tiles ({rows})")
         return out, err
 
     fi = fit_inputs(scans[0], p)
@@ -424,21 +428,32 @@ def main() -> int:
     crowd_tiles = patch_tiles(fi_crowd)[0]
     if crowd_tiles <= fkg.CAP_TILES:
         raise AssertionError(f"crowded patch has {crowd_tiles} tiles, not over {fkg.CAP_TILES}")
-    check_k1(fi_crowd, p, "crowded patch")
+    k1_crowd, _ = check_k1(fi_crowd, p, "crowded patch")
+    crowd_args = (fi_crowd.xs, fi_crowd.ys, fi_crowd.zs, fi_crowd.valid_f,
+                  fi_crowd.tile_patch, fi_crowd.pad_start, fi_crowd.gates, fi_crowd.consts)
     fi_one = fit_inputs(make_one_tile_scan(args.seed), p)
     if patch_tiles(fi_one)[0] != 1:
         raise AssertionError("one-tile cloud has a processed patch of more than one tile")
-    check_k1(fi_one, p, "one-tile patches")
+    k1_one, _ = check_k1(fi_one, p, "one-tile patches")
 
-    k2_out = fk.fused_fit(*fit_args, p)
-    torch.cuda.synchronize()
-    compare_tables(k2_out, fk.fused_fit_reference(*(a.cpu() for a in fit_args), p),
-                   p, "K2 vs plain (cpu)")
-    k2_err = compare_tables(k2_out, fk.fused_fit_reference(*fit_args, p), p,
-                            "K2 vs plain (card)")
-    # K2 and K1 compute the same program with other per-patch sums: the
-    # integer columns are equal, the floats differ by ulps
-    k1k2_err = compare_tables(k2_out, k_out, p, "K2 vs K1 (card)", exact=False)
+    def check_k2(fi, k1_out, label):
+        """K2 vs its plain version on the card and on the CPU, bit for bit;
+        K2 vs K1: the same program with other per-patch sums, so the
+        integer columns are equal and the floats differ by ulps."""
+        a = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
+             fi.consts)
+        out = fk.fused_fit(*a, p)
+        torch.cuda.synchronize()
+        compare_tables(out, fk.fused_fit_reference(*(t.cpu() for t in a), p), p,
+                       f"K2 vs plain (cpu), {label}")
+        err = compare_tables(out, fk.fused_fit_reference(*a, p), p,
+                             f"K2 vs plain (card), {label}")
+        return err, compare_tables(out, k1_out, p, f"K2 vs K1 (card), {label}",
+                                   exact=False)
+
+    k2_err, k1k2_err = check_k2(fi, k_out, "main scan")
+    check_k2(fi_crowd, k1_crowd, "crowded patch")
+    check_k2(fi_one, k1_one, "one-tile patches")
 
     # ---- 4. main paths on the card vs the CPU path
     def drive(fused, frames, want):
@@ -497,10 +512,9 @@ def main() -> int:
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
 
-    # the crowded cloud: K1 with a patch over its shared-memory cap
-    crowd_args = (fi_crowd.xs, fi_crowd.ys, fi_crowd.zs, fi_crowd.valid_f,
-                  fi_crowd.tile_patch, fi_crowd.pad_start, fi_crowd.gates, fi_crowd.consts)
+    # the crowded cloud: a patch over the kernels' shared-memory cap
     crowd_ms = cuda_ms(lambda: fkg.fused_fit_grid(*crowd_args, p), reps=20)
+    k2_crowd_ms = cuda_ms(lambda: fk.fused_fit(*crowd_args, p), reps=20)
     plain_ms = cuda_ms(lambda: tiled_fit(*fit_args[:7], fi.consts[0], p), reps=5)
     k2_ms = cuda_ms(lambda: fk.fused_fit(*fit_args, p), reps=50)
     k2_plain_ms = cuda_ms(lambda: fk.fused_fit_reference(*fit_args, p), reps=3, warmup=1)
@@ -551,10 +565,11 @@ def main() -> int:
     print(f"fit kernel {kernel_ms:.4f} ms, plain on card {plain_ms:.3f} ms, "
           f"bound {bound_ms:.5f} ms ({nbytes} B, {ops} ops); largest patch {largest} "
           f"tiles x {walks} walks: {per_walk_us:.5f} us per tile-walk; crowded-patch "
-          f"cloud ({crowd_tiles} tiles, global memory) {crowd_ms:.4f} ms; frame median "
+          f"cloud ({crowd_tiles} tiles, staged) {crowd_ms:.4f} ms; frame median "
           f"{frame_ms:.3f} ms (CUDA events), {host_ms:.3f} ms host median incl. copies")
     print(f"K2 {k2_ms:.4f} ms, plain on card {k2_plain_ms:.3f} ms, bound "
-          f"{bound_ms:.5f} ms; onehot frame median {frame_k2_ms:.3f} ms, "
+          f"{bound_ms:.5f} ms, crowded-patch cloud {k2_crowd_ms:.4f} ms; "
+          f"onehot frame median {frame_k2_ms:.3f} ms, "
           f"unfused frame median {frame_unf_ms:.3f} ms (CUDA events)")
 
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -590,6 +605,7 @@ def main() -> int:
         "tiles": int(fi.xs.shape[0]), "processed_tiles": proc_tiles,
         "largest_patch_tiles": largest, "walks": walks, "frame_ms_each": per_frame,
         "crowded_patch_tiles": crowd_tiles, "crowded_ms": crowd_ms,
+        "k2_crowded_ms": k2_crowd_ms,
         "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
         "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
         "k1_k2_max_abs_diff": k1k2_err, **kernels,

@@ -1,10 +1,12 @@
-// Device functions shared by the port's two fit kernels (fit_grid.cu, K1,
-// and fit_onehot.cu, K2): the fixed-order tile sum (K2's; K1 sums several
-// columns at once along the same tree) and the plane fit from moment sums.
-// Each repeats the plain PyTorch version operation for operation
-// (ops.tree_sum, ops/eigen3.py, ops/trig.py,
-// ops/fit_kernel.py:plane_row_from_moments), so the kernels and their plain
-// versions agree bit for bit when built with --fmad=false.
+// Device functions shared by the port's two fit kernels (fit_program.cuh,
+// built as K1 in fit_grid.cu and K2 in fit_onehot.cu): the plane fit from
+// moment sums. It repeats the plain PyTorch version operation for operation
+// (ops/eigen3.py, ops/trig.py, ops/fit_kernel.py:plane_row_from_moments),
+// so the kernels and their plain versions agree bit for bit. The build has
+// --fmad=false, so nvcc contracts nothing on its own; every fused
+// multiply-add here is an explicit __fmaf_rn, where the plain version has
+// ops.fma, because XLA:CPU fuses the same multiply into its add or
+// subtract when it compiles the JAX package (see ops/eigen3.py).
 
 #pragma once
 
@@ -36,14 +38,6 @@ __device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// Sum of a 128-row tile held as rows (l, l+32, l+64, l+96) by lane l, in
-// the order of ops.tree_sum; every lane gets the total.
-__device__ __forceinline__ float tile_sum(float v0, float v1, float v2, float v3) {
-  float s = (v0 + v2) + (v1 + v3);
-  for (int off = 16; off > 0; off >>= 1) s = s + __shfl_down_sync(kFull, s, off);
-  return __shfl_sync(kFull, s, 0);
-}
-
 __device__ __forceinline__ void cross3(float px, float py, float pz, float qx,
                                        float qy, float qz, float& x, float& y,
                                        float& z) {
@@ -52,17 +46,35 @@ __device__ __forceinline__ void cross3(float px, float py, float pz, float qx,
   z = px * qy - py * qx;
 }
 
-// ops/eigen3.py:_best_row_cross
+// ops/eigen3.py:_best_row_cross. kContracted: the rounding of the
+// separated pair's fusion (products shared by two components or by off_sq
+// are rounded on their own, the others fused into their subtraction).
+template <bool kContracted>
 __device__ void best_row_cross(float d00, float a01, float a02, float d11,
                                float a12, float d22, float& vx, float& vy,
                                float& vz, float& nbest) {
-  float ax, ay, az, bx, by, bz, cx, cy, cz;
-  cross3(d00, a01, a02, a01, d11, a12, ax, ay, az);
-  cross3(d00, a01, a02, a02, a12, d22, bx, by, bz);
-  cross3(a01, d11, a12, a02, a12, d22, cx, cy, cz);
-  const float na = ax * ax + ay * ay + az * az;
-  const float nb = bx * bx + by * by + bz * bz;
-  const float nc = cx * cx + cy * cy + cz * cz;
+  float ax, ay, az, bx, by, bz, cx, cy, cz, na, nb, nc;
+  if (kContracted) {
+    ax = __fmaf_rn(a01, a12, -(a02 * d11));
+    ay = a02 * a01 - d00 * a12;
+    az = __fmaf_rn(d00, d11, -(a01 * a01));
+    bx = a01 * d22 - a02 * a12;
+    by = __fmaf_rn(-d00, d22, a02 * a02);
+    bz = d00 * a12 - a01 * a02;
+    cx = __fmaf_rn(d11, d22, -(a12 * a12));
+    cy = a12 * a02 - a01 * d22;
+    cz = ax;
+    na = __fmaf_rn(az, az, __fmaf_rn(ay, ay, ax * ax));
+    nb = __fmaf_rn(bz, bz, __fmaf_rn(bx, bx, by * by));
+    nc = __fmaf_rn(cx, cx, cy * cy) + cz * cz;
+  } else {
+    cross3(d00, a01, a02, a01, d11, a12, ax, ay, az);
+    cross3(d00, a01, a02, a02, a12, d22, bx, by, bz);
+    cross3(a01, d11, a12, a02, a12, d22, cx, cy, cz);
+    na = ax * ax + ay * ay + az * az;
+    nb = bx * bx + by * by + bz * bz;
+    nc = cx * cx + cy * cy + cz * cz;
+  }
   const bool use_a = na >= nb;
   vx = use_a ? ax : bx;
   vy = use_a ? ay : by;
@@ -79,33 +91,83 @@ __device__ void best_row_cross(float d00, float a01, float a02, float d11,
 __device__ void cardano_cos_pair(float r, float& c, float& c_hi) {
   const float ax = fabsf(r);
   float poly = -0.0012624911f;
-  poly = poly * ax + 0.0066700901f;
-  poly = poly * ax + -0.0170881256f;
-  poly = poly * ax + 0.0308918810f;
-  poly = poly * ax + -0.0501743046f;
-  poly = poly * ax + 0.0889789874f;
-  poly = poly * ax + -0.2145988016f;
-  poly = poly * ax + 1.5707963050f;
+  poly = __fmaf_rn(poly, ax, 0.0066700901f);
+  poly = __fmaf_rn(poly, ax, -0.0170881256f);
+  poly = __fmaf_rn(poly, ax, 0.0308918810f);
+  poly = __fmaf_rn(poly, ax, -0.0501743046f);
+  poly = __fmaf_rn(poly, ax, 0.0889789874f);
+  poly = __fmaf_rn(poly, ax, -0.2145988016f);
+  poly = __fmaf_rn(poly, ax, 1.5707963050f);
   const float pos = sqrtf(max_nan(1.0f - ax, 0.0f)) * poly;
   const float acos_r = r >= 0.f ? pos : 3.14159265358979323846f - pos;
   const float phi = acos_r * (float)(1.0 / 3.0);
   const float p2 = phi * phi;
   float s = (float)(-1.0 / 39916800.0);
-  s = s * p2 + (float)(1.0 / 362880.0);
-  s = s * p2 + (float)(-1.0 / 5040.0);
-  s = s * p2 + (float)(1.0 / 120.0);
-  s = s * p2 + (float)(-1.0 / 6.0);
-  s = s * p2 + 1.0f;
+  s = __fmaf_rn(s, p2, (float)(1.0 / 362880.0));
+  s = __fmaf_rn(s, p2, (float)(-1.0 / 5040.0));
+  s = __fmaf_rn(s, p2, (float)(1.0 / 120.0));
+  s = __fmaf_rn(s, p2, (float)(-1.0 / 6.0));
+  s = __fmaf_rn(s, p2, 1.0f);
   const float sn = s * phi;
   float cs = (float)(1.0 / 479001600.0);
-  cs = cs * p2 + (float)(-1.0 / 3628800.0);
-  cs = cs * p2 + (float)(1.0 / 40320.0);
-  cs = cs * p2 + (float)(-1.0 / 720.0);
-  cs = cs * p2 + (float)(1.0 / 24.0);
-  cs = cs * p2 + (float)(-1.0 / 2.0);
-  cs = cs * p2 + 1.0f;
+  cs = __fmaf_rn(cs, p2, (float)(-1.0 / 3628800.0));
+  cs = __fmaf_rn(cs, p2, (float)(1.0 / 40320.0));
+  cs = __fmaf_rn(cs, p2, (float)(-1.0 / 720.0));
+  cs = __fmaf_rn(cs, p2, (float)(1.0 / 24.0));
+  cs = __fmaf_rn(cs, p2, (float)(-1.0 / 2.0));
+  cs = __fmaf_rn(cs, p2, 1.0f);
   c = cs;
-  c_hi = -0.5f * cs - 0.8660254037844386f * sn;
+  c_hi = __fmaf_rn(-0.5f, cs, -(0.8660254037844386f * sn));
+}
+
+// The Cardano roots of a symmetric 3x3 matrix and the terms the vector
+// construction reuses (ops/eigen3.py:eig3_plane_columns, up to e0, e1, e2).
+struct Roots {
+  float off_sq, diag_sq, tr, q, p2, two_p, cos_hi, e0, e1, e2;
+};
+
+__device__ Roots cardano_roots(float a00, float a01, float a02, float a11, float a12,
+                               float a22) {
+  Roots o;
+  o.off_sq = __fmaf_rn(a12, a12, __fmaf_rn(a01, a01, a02 * a02));
+  o.diag_sq = __fmaf_rn(a22, a22, __fmaf_rn(a00, a00, a11 * a11));
+  // ops.div: a division by a constant is a multiply by its f32 reciprocal
+  o.tr = a00 + a11 + a22;
+  const float third = 1.0f / 3.0f;
+  o.q = o.tr * third;
+  const float b00 = __fmaf_rn(-o.tr, third, a00);
+  const float b11 = __fmaf_rn(-o.tr, third, a11);
+  const float b22 = __fmaf_rn(-o.tr, third, a22);
+  o.p2 = __fmaf_rn(b22, b22, __fmaf_rn(b00, b00, b11 * b11)) + 2.0f * o.off_sq;
+  const float p = sqrtf(o.p2 * (1.0f / 6.0f));
+
+  const float safe_p = p > 1e-12f ? p : 1.0f;
+  const float c00 = b00 / safe_p, c11 = b11 / safe_p, c22 = b22 / safe_p;
+  const float c01 = a01 / safe_p, c02 = a02 / safe_p, c12 = a12 / safe_p;
+  const float detb = __fmaf_rn(
+      c02, __fmaf_rn(c01, c12, -(c11 * c02)),
+      __fmaf_rn(c00, __fmaf_rn(c11, c22, -(c12 * c12)),
+                -(c01 * __fmaf_rn(c01, c22, -(c12 * c02)))));
+  const float r = clip_nan(detb * 0.5f, -1.0f, 1.0f);
+  float cos_lo;
+  cardano_cos_pair(r, cos_lo, o.cos_hi);
+
+  o.two_p = 2.0f * p;
+  o.e0 = __fmaf_rn(o.two_p, cos_lo, o.q);
+  o.e2 = __fmaf_rn(o.two_p, o.cos_hi, o.q);
+  o.e1 = (o.tr - o.e0) - o.e2;  // 3 * q, folded to the trace
+  return o;
+}
+
+// ops/eigen3.py:eig3_plane_columns(vector=False): the eigenvalues,
+// descending (q where the matrix is isotropic, NaN where it is not finite).
+__device__ void eig3_values(float a00, float a01, float a02, float a11, float a12, float a22,
+                            float e[3]) {
+  const Roots o = cardano_roots(a00, a01, a02, a11, a12, a22);
+  const bool isotropic = o.p2 <= 1e-12f;
+  const bool bad = !isfinite(a00 + a11 + a22 + o.off_sq);
+  const float v[3] = {o.e0, o.e1, o.e2};
+  for (int c = 0; c < 3; ++c) e[c] = bad ? __int_as_float(0x7fffffff) : isotropic ? o.q : v[c];
 }
 
 // ops/eigen3.py:eig3_plane_columns, vector part only (the unflipped unit
@@ -116,42 +178,28 @@ __device__ void cardano_cos_pair(float r, float& c, float& c_hi) {
 __device__ void eig3_plane(float a00, float a01, float a02, float a11,
                            float a12, float a22, float& vx, float& vy,
                            float& vz) {
-  const float off_sq = a01 * a01 + a02 * a02 + a12 * a12;
-  const float fro2 = a00 * a00 + a11 * a11 + a22 * a22 + 2.0f * off_sq;
-  // ops.div: a division by a constant is a multiply by its f32 reciprocal
-  const float q = (a00 + a11 + a22) * (1.0f / 3.0f);
-  const float b00 = a00 - q, b11 = a11 - q, b22 = a22 - q;
-  const float p2 = b00 * b00 + b11 * b11 + b22 * b22 + 2.0f * off_sq;
-  const float p = sqrtf(p2 * (1.0f / 6.0f));
-
-  const float safe_p = p > 1e-12f ? p : 1.0f;
-  const float c00 = b00 / safe_p, c11 = b11 / safe_p, c22 = b22 / safe_p;
-  const float c01 = a01 / safe_p, c02 = a02 / safe_p, c12 = a12 / safe_p;
-  const float detb = c00 * (c11 * c22 - c12 * c12) -
-                     c01 * (c01 * c22 - c12 * c02) +
-                     c02 * (c01 * c12 - c11 * c02);
-  const float r = clip_nan(detb * 0.5f, -1.0f, 1.0f);
-  float cos_lo, cos_hi;
-  cardano_cos_pair(r, cos_lo, cos_hi);
-
-  const float two_p = 2.0f * p;
-  const float e0 = q + two_p * cos_lo;
-  const float e2 = q + two_p * cos_hi;
-  const float e1 = 3.0f * q - e0 - e2;
+  const Roots o = cardano_roots(a00, a01, a02, a11, a12, a22);
+  const float off_sq = o.off_sq, diag_sq = o.diag_sq, tr = o.tr;
+  const float two_p = o.two_p, cos_hi = o.cos_hi, e0 = o.e0, e1 = o.e1, e2 = o.e2;
+  const float third = 1.0f / 3.0f;
+  const float fro2 = diag_sq + 2.0f * off_sq;
   const float fro = sqrtf(fro2);
   const bool clustered = (e1 - e2) <= 1e-2f * fro;
 
-  // separated pair: eigenvector of e2 from the largest row cross product
+  // separated pair: eigenvector of e2 from the largest row cross product,
+  // with that fusion's e2 and fro2 (ops/eigen3.py)
   float sx = 0.0f, sy = 0.0f, sz = 0.0f;
   if (!clustered) {
+    const float e2s = __fmaf_rn(tr, third, two_p * cos_hi);
     float nbest_s;
-    best_row_cross(a00 - e2, a01, a02, a11 - e2, a12, a22 - e2, sx, sy, sz,
-                   nbest_s);
-    const bool degen_s = nbest_s <= 1e-12f * fro2 * fro2;
+    best_row_cross<true>(a00 - e2s, a01, a02, a11 - e2s, a12, a22 - e2s, sx, sy, sz,
+                         nbest_s);
+    const float fro2_s = diag_sq + 2.0f * ((a01 * a01 + a02 * a02) + a12 * a12);
+    const bool degen_s = nbest_s <= 1e-12f * fro2_s * fro2_s;
     sx = degen_s ? 0.0f : sx;
     sy = degen_s ? 0.0f : sy;
     sz = degen_s ? 1.0f : sz;
-    const float norm_s = sqrtf(sx * sx + sy * sy + sz * sz);
+    const float norm_s = sqrtf(__fmaf_rn(sz, sz, __fmaf_rn(sx, sx, sy * sy)));
     sx = sx / norm_s;
     sy = sy / norm_s;
     sz = sz / norm_s;
@@ -161,8 +209,8 @@ __device__ void eig3_plane(float a00, float a01, float a02, float a11,
   float dx = 0.0f, dy = 0.0f, dz = 0.0f;
   if (clustered) {
     float vx0, vy0, vz0, nbest0;
-    best_row_cross(a00 - e0, a01, a02, a11 - e0, a12, a22 - e0, vx0, vy0, vz0,
-                   nbest0);
+    best_row_cross<false>(a00 - e0, a01, a02, a11 - e0, a12, a22 - e0, vx0, vy0, vz0,
+                          nbest0);
     const bool degen0 = nbest0 <= 1e-12f * fro2 * fro2;
     const float inv0 = 1.0f / sqrtf(max_nan(nbest0, 1e-30f));
     vx0 = vx0 * inv0;
@@ -241,12 +289,12 @@ __device__ void plane_row(const float m[10], float spx, float spy, float spz,
   const float mqy = m[2] / safe_n;
   const float mqz = m[3] / safe_n;
   const float denom = n - 1.0f;
-  const float cxx = (m[4] - n * mqx * mqx) / denom;
-  const float cxy = (m[5] - n * mqx * mqy) / denom;
-  const float cxz = (m[6] - n * mqx * mqz) / denom;
-  const float cyy = (m[7] - n * mqy * mqy) / denom;
-  const float cyz = (m[8] - n * mqy * mqz) / denom;
-  const float czz = (m[9] - n * mqz * mqz) / denom;
+  const float cxx = __fmaf_rn(-(n * mqx), mqx, m[4]) / denom;
+  const float cxy = __fmaf_rn(-(n * mqx), mqy, m[5]) / denom;
+  const float cxz = __fmaf_rn(-(n * mqx), mqz, m[6]) / denom;
+  const float cyy = __fmaf_rn(-(n * mqy), mqy, m[7]) / denom;
+  const float cyz = __fmaf_rn(-(n * mqy), mqz, m[8]) / denom;
+  const float czz = __fmaf_rn(-(n * mqz), mqz, m[9]) / denom;
   float vx, vy, vz;
   eig3_plane(cxx, cxy, cxz, cyy, cyz, czz, vx, vy, vz);
   const bool flip = vz < 0.0f;
@@ -256,7 +304,7 @@ __device__ void plane_row(const float m[10], float spx, float spy, float spz,
   const float mx = mqx + spx;
   const float my = mqy + spy;
   const float mz = mqz + spz;
-  float d = -(nx * mx + ny * my + nz * mz);
+  float d = -__fmaf_rn(nz, mz, __fmaf_rn(nx, mx, ny * my));
   // non-finite plane (a 1-point fit) -> sentinel [0, 0, 0, 1e30]
   const bool fin = isfinite(nx) && isfinite(ny) && isfinite(nz) && isfinite(d);
   if (!fin) {

@@ -1,7 +1,7 @@
 """Times the fit kernel K1 (csrc/fit_grid.cu) as built against the same
-kernel with every patch's rows read from global memory (its fit_patch<false>
-branch, which the built kernel takes only for patches over kCapTiles), on
-chip_smoke.py's main scan, one-tile and crowded-patch clouds.
+kernel with every patch staged into shared memory chunk by chunk at every
+walk (the path csrc/fit_program.cuh takes only for patches over kCapTiles),
+on chip_smoke.py's main scan, one-tile and crowded-patch clouds.
 
 Both builds are first held bit for bit against the plain version; then each
 is timed with chip_smoke.cuda_ms (device time, calls queued behind a device
@@ -25,18 +25,19 @@ from patchworkpp_tpu_torch.ops import nvcc
 from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
 from patchworkpp_tpu_torch.pipeline import make_frame_fn
 
-SMEM_TEST = "  if (T <= kCapTiles) {"
+SMEM_TEST = "const bool resident = T <= kCapTiles;"
 
 
 def build_global_only():
-    """K1 with the shared-memory branch never taken, built beside the others."""
+    """K1 with no patch resident in shared memory, built beside the others."""
     out = nvcc.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    src = fkg.SOURCE.read_text()
+    src = (nvcc.CSRC / "fit_program.cuh").read_text()
     if SMEM_TEST not in src:
-        raise RuntimeError(f"{fkg.SOURCE.name} no longer holds {SMEM_TEST.strip()!r}")
-    (out / "fit_grid.cu").write_text(src.replace(SMEM_TEST, "  if (false) {"))
-    shutil.copy(nvcc.CSRC / "fit_math.cuh", out / "fit_math.cuh")
+        raise RuntimeError(f"fit_program.cuh no longer holds {SMEM_TEST!r}")
+    (out / "fit_program.cuh").write_text(src.replace(SMEM_TEST, "const bool resident = false;"))
+    for name in ("fit_grid.cu", "fit_math.cuh"):
+        shutil.copy(nvcc.CSRC / name, out / name)
     return nvcc.build(out / "fit_grid.cu", "ppk_fit_grid", fkg.ARGTYPES)
 
 
@@ -72,7 +73,7 @@ def main() -> int:
         for _ in range(3):
             for which in "ABBA":
                 times[which].append(cs.cuda_ms(lambda: run(which, a), reps=200, warmup=5))
-        for which, what in (("A", "as built"), ("B", "every patch from global memory")):
+        for which, what in (("A", "as built"), ("B", "every patch staged per walk")):
             v = times[which]
             print(f"{name}: K1 {what}: median {np.median(v):.5f} ms "
                   f"(min {min(v):.5f}, max {max(v):.5f}, {len(v)} timings)")

@@ -43,26 +43,42 @@ def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
     return t * (t.abs() >= 2.0**-126)
 
 
+def fma(a, b, c) -> torch.Tensor:
+    """Float32 ``a * b + c`` rounded once (a fused multiply-add), as
+    XLA:CPU's x86 backend computes a multiply-add pair that it contracts
+    and as the CUDA kernels' ``__fmaf_rn`` does.
+
+    ``a * b`` is exact in float64 (24-bit factors); its float64 sum with
+    ``c`` is made round-to-odd with a TwoSum error term, and round-to-odd
+    at 53 bits then rounds to the correctly rounded float32 (Boldo and
+    Melquiond, "Emulation of FMA and correctly rounded sums", IEEE TC
+    2008). Separate tensor ops, so the same bits on every device. Any of
+    the three may be a float32 tensor or a Python float (taken as float32);
+    infinities and NaNs pass through as the float64 sum gives them."""
+    ad = a.double() if isinstance(a, torch.Tensor) else f32(a)
+    bd = ad if b is a else b.double() if isinstance(b, torch.Tensor) else f32(b)
+    cd = c.double() if isinstance(c, torch.Tensor) else f32(c)
+    p = ad * bd
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    # inexact and even: step to the odd neighbour on the exact sum's side
+    # (a NaN error term, from an infinite sum, compares false both ways)
+    fix = ((e > 0) | (e < 0)) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(fix, torch.nextafter(s, e * float("inf")), s).float()
+
+
+def plane_dist(x, y, z, nx, ny, nz, d) -> torch.Tensor:
+    """``((x*nx + y*ny) + z*nz) + d`` as XLA:CPU contracts it: the first
+    add takes its left product into ``fma(x, nx, y*ny)``, the second its
+    right one, the last add has no product."""
+    return fma(z, nz, fma(x, nx, y * ny)) + d
+
+
 def sq_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x*x + y*y`` in float32 as XLA:CPU computes it: contracted into
-    ``fma(x, x, y*y)``, one rounding of the exact ``x*x`` plus ``y*y``.
-
-    ``y*y`` is rounded to float32; ``x*x`` is exact in float64 (24-bit
-    factors); their float64 sum is made round-to-odd with a TwoSum error
-    term, and round-to-odd at 53 bits then rounds to the correctly rounded
-    float32 (Boldo and Melquiond, "Emulation of FMA and correctly rounded
-    sums", IEEE TC 2008). Separate tensor ops, so the same bits on every
-    device. The inputs are finite and of either sign; the sum is >= 0."""
-    xd = x.double()
-    a = xd * xd
-    b = (y * y).double()
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
-    bits = s.view(torch.int64)
-    odd = (bits & 1) == 1
-    bits = torch.where((e != 0) & ~odd, bits + torch.sign(e).to(torch.int64), bits)
-    return bits.view(torch.float64).float()
+    ``fma(x, x, y*y)``, one rounding of the exact ``x*x`` plus ``y*y``."""
+    return fma(x, x, y * y)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -87,15 +103,37 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.where(fix & (xd < lo * lo), dn, s)
 
 
+ROW_WINDOW = 32
+
+
+def row_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over a last axis of 128 (any multiple of 32) in XLA:CPU's order.
+
+    XLA:CPU rewrites a long row reduction into a reduce-window of 32 wide
+    windows and a reduction of the window sums, and each loop adds its
+    elements one after another to an accumulator that starts at 0. The JAX
+    package's tile sums (``jnp.sum(..., axis=1)`` over a 128-lane tile in
+    ops/tiled_fit.py) therefore round as
+    ``(((0 + w0) + w1) + w2) + w3`` with ``w = ((0 + v0) + v1) + ... + v31``
+    over each window; the fit kernels add a tile's rows in this order too."""
+    n = v.shape[-1]
+    w = v.reshape(*v.shape[:-1], n // ROW_WINDOW, ROW_WINDOW)
+    acc = torch.zeros(w.shape[:-1], dtype=v.dtype, device=v.device)
+    for k in range(ROW_WINDOW):
+        acc = acc + w[..., k]
+    out = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for k in range(n // ROW_WINDOW):
+        out = out + acc[..., k]
+    return out
+
+
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis in a fixed pairwise order.
 
     The axis is zero-padded to a power of two and halved in place
-    (``v[..., :h] + v[..., h:]``) until one column is left. For a 128-wide
-    tile this is exactly the order of the fit kernels' warp reductions
-    (csrc/fit_math.cuh ``tile_sum``, and ``Fold`` in csrc/fit_grid.cu), so
-    the plain versions and the kernels give the same bits on every device; ``torch.sum`` leaves its order to
-    the backend."""
+    (``v[..., :h] + v[..., h:]``) until one column is left, so a sum gives
+    the same bits on every device; ``torch.sum`` leaves its order to the
+    backend."""
     n = v.shape[-1]
     width = 1 << max(n - 1, 0).bit_length()
     if width != n:

@@ -2,9 +2,28 @@
 
 Port of ``patchworkpp_tpu/ops/eigen3.py``, written term by term after the
 JAX expressions (see that module for the derivation and the measured
-reason for the hybrid vector construction). The CUDA fit kernel
-(csrc/fit_grid.cu ``eig3_plane``) repeats the same operation sequence, so
+reason for the hybrid vector construction). The CUDA fit kernels
+(csrc/fit_math.cuh ``eig3_plane``) repeat the same operation sequence, so
 the plain and kernel paths resolve every eigenproblem to the same bits.
+
+Rounding follows XLA:CPU's compiled JAX function. Its x86 backend fuses a
+multiply into the add or subtract that uses it (``ops.fma``) when the
+product has no other use inside the fusion: ``a*b + c*d`` becomes
+``fma(a, b, c*d)`` (the left product first), ``a - b*c`` becomes
+``fma(-b, c, a)``; a product shared by two expressions of one fusion is
+rounded on its own. XLA also folds ``3 * (t * 1/3)`` to ``t``. The
+choices below were read from the compiled fusions (``XLA_FLAGS=
+--xla_dump_to``: the fusion HLO for the shared products, ``objdump -d`` of
+the fusion objects for the ``vfmadd``/``vfmsub`` forms) and hold the
+eigenvalues and the separated-pair vector to the JAX function's bits.
+Where one value is computed in two fusions with different sharing, each
+consumer gets its own rounding (``e2`` and ``fro2`` of the separated pair).
+
+Not mirrored: XLA:CPU computes the clustered branch's ``1 / sqrt(x)`` as
+the CPU's reciprocal square-root estimate refined by two Newton steps, whose
+last bit depends on the host's estimate table; this module keeps the
+correctly rounded ``1 / sqrt``, so a clustered pair's normal may differ
+from the JAX package's in the last bits.
 """
 
 from __future__ import annotations
@@ -13,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from patchworkpp_tpu_torch.ops import div, f32, sqrt
+from patchworkpp_tpu_torch.ops import div, f32, fma, sqrt
 from patchworkpp_tpu_torch.ops.trig import cardano_cos_pair
 
 _EPS = f32(1e-12)
@@ -30,15 +49,36 @@ def _cross3(px, py, pz, qx, qy, qz):
     )
 
 
-def _best_row_cross(d00, a01, a02, d11, a12, d22):
+def _best_row_cross(d00, a01, a02, d11, a12, d22, contracted=False):
     """Largest cross product of two rows of a symmetric matrix.
-    Returns (vx, vy, vz, nbest)."""
-    ax, ay, az = _cross3(d00, a01, a02, a01, d11, a12)
-    bx, by, bz = _cross3(d00, a01, a02, a02, a12, d22)
-    cx, cy, cz = _cross3(a01, d11, a12, a02, a12, d22)
-    na = ax * ax + ay * ay + az * az
-    nb = bx * bx + by * by + bz * bz
-    nc = cx * cx + cy * cy + cz * cz
+    Returns (vx, vy, vz, nbest).
+
+    ``contracted``: the rounding of the fusion that builds the separated
+    pair's vector. There the products a01*a02, d00*a12, a01*d22 and
+    a02*a12 each serve two components (a row pair's cross products share
+    them), and a01^2, a02^2, a12^2 also serve off_sq, so only the other
+    products fuse into their subtraction; the squared norms fuse their
+    single-use squares, ax*ax (= cz*cz) serving two."""
+    if not contracted:
+        ax, ay, az = _cross3(d00, a01, a02, a01, d11, a12)
+        bx, by, bz = _cross3(d00, a01, a02, a02, a12, d22)
+        cx, cy, cz = _cross3(a01, d11, a12, a02, a12, d22)
+        na = ax * ax + ay * ay + az * az
+        nb = bx * bx + by * by + bz * bz
+        nc = cx * cx + cy * cy + cz * cz
+    else:
+        ax = fma(a01, a12, -(a02 * d11))
+        ay = a02 * a01 - d00 * a12
+        az = fma(d00, d11, -(a01 * a01))
+        bx = a01 * d22 - a02 * a12
+        by = fma(-d00, d22, a02 * a02)
+        bz = d00 * a12 - a01 * a02
+        cx = fma(d11, d22, -(a12 * a12))
+        cy = a12 * a02 - a01 * d22
+        cz = ax  # a01*a12 - d11*a02: the same products, the same bits
+        na = fma(az, az, fma(ay, ay, ax * ax))
+        nb = fma(bz, bz, fma(bx, bx, by * by))
+        nc = fma(cx, cx, cy * cy) + cz * cz
     use_a = na >= nb
     vx = torch.where(use_a, ax, bx)
     vy = torch.where(use_a, ay, by)
@@ -51,53 +91,65 @@ def _best_row_cross(d00, a01, a02, d11, a12, d22):
     return vx, vy, vz, torch.maximum(nab, nc)
 
 
-def eig3_plane_columns(a00, a01, a02, a11, a12, a22):
+def eig3_plane_columns(a00, a01, a02, a11, a12, a22, vector=True):
     """Eigenvalues (descending) and the UNFLIPPED unit eigenvector of the
     smallest one, for batches of symmetric 3x3 matrices given by their six
     distinct entries (same-shape float32 tensors).
 
-    Returns (e0, e1, e2, vx, vy, vz). Degenerate pencils resolve to +z;
-    non-finite input gives NaN outputs."""
-    off_sq = a01 * a01 + a02 * a02 + a12 * a12
-    fro2 = a00 * a00 + a11 * a11 + a22 * a22 + 2.0 * off_sq
-    q = div(a00 + a11 + a22, 3.0)
-    b00, b11, b22 = a00 - q, a11 - q, a22 - q
-    p2 = b00 * b00 + b11 * b11 + b22 * b22 + 2.0 * off_sq
+    Returns (e0, e1, e2, vx, vy, vz), or (e0, e1, e2) when not ``vector``
+    (XLA drops the unused vector's ops the same way). Degenerate pencils
+    resolve to +z; non-finite input gives NaN outputs."""
+    off_sq = fma(a12, a12, fma(a01, a01, a02 * a02))
+    diag_sq = fma(a22, a22, fma(a00, a00, a11 * a11))
+    fro2 = diag_sq + 2.0 * off_sq
+    tr = a00 + a11 + a22
+    third = f32(1.0 / 3.0)
+    q = tr * third  # ops.div(tr, 3.0)
+    # b = a - q, with q's product fused into the subtraction
+    b00, b11, b22 = (fma(-tr, third, a) for a in (a00, a11, a22))
+    p2 = fma(b22, b22, fma(b00, b00, b11 * b11)) + 2.0 * off_sq
     p = sqrt(div(p2, 6.0))
 
     safe_p = torch.where(p > _EPS, p, torch.ones_like(p))
     c00, c11, c22 = b00 / safe_p, b11 / safe_p, b22 / safe_p
     c01, c02, c12 = a01 / safe_p, a02 / safe_p, a12 / safe_p
-    detb = (
-        c00 * (c11 * c22 - c12 * c12)
-        - c01 * (c01 * c22 - c12 * c02)
-        + c02 * (c01 * c12 - c11 * c02)
+    detb = fma(
+        c02, fma(c01, c12, -(c11 * c02)),
+        fma(c00, fma(c11, c22, -(c12 * c12)), -(c01 * fma(c01, c22, -(c12 * c02)))),
     )
     r = torch.clamp(div(detb, 2.0), -1.0, 1.0)
     cos_lo, cos_hi = cardano_cos_pair(r)
 
     two_p = 2.0 * p
-    e0 = q + two_p * cos_lo
-    e2 = q + two_p * cos_hi
-    e1 = 3.0 * q - e0 - e2
+    e0 = fma(two_p, cos_lo, q)
+    e2 = fma(two_p, cos_hi, q)
+    e1 = (tr - e0) - e2  # 3 * q, folded to the trace
 
     isotropic = p2 <= _EPS
     e0v = torch.where(isotropic, q, e0)
     e1v = torch.where(isotropic, q, e1)
     e2v = torch.where(isotropic, q, e2)
+    bad = ~torch.isfinite(a00 + a11 + a22 + off_sq)
+    nan = torch.full_like(a00, float("nan"))
+    if not vector:
+        return tuple(torch.where(bad, nan, t) for t in (e0v, e1v, e2v))
 
     zero = torch.zeros_like(a00)
     one = torch.ones_like(a00)
 
-    # separated pair: eigenvector of e2 from the largest row cross product
+    # separated pair: eigenvector of e2 from the largest row cross product.
+    # Its fusion holds q once, so e2 there fuses q's product instead, and
+    # its off_sq squares are shared with the cross products (no fusing).
+    e2s = fma(tr, third, two_p * cos_hi)
     sx, sy, sz, nbest_s = _best_row_cross(
-        a00 - e2, a01, a02, a11 - e2, a12, a22 - e2
+        a00 - e2s, a01, a02, a11 - e2s, a12, a22 - e2s, contracted=True
     )
-    degen_s = nbest_s <= _REL * fro2 * fro2
+    fro2_s = diag_sq + 2.0 * ((a01 * a01 + a02 * a02) + a12 * a12)
+    degen_s = nbest_s <= _REL * fro2_s * fro2_s
     sx = torch.where(degen_s, zero, sx)
     sy = torch.where(degen_s, zero, sy)
     sz = torch.where(degen_s, one, sz)
-    norm_s = sqrt(sx * sx + sy * sy + sz * sz)
+    norm_s = sqrt(fma(sz, sz, fma(sx, sx, sy * sy)))
     sx, sy, sz = sx / norm_s, sy / norm_s, sz / norm_s
 
     # clustered pair: deflation from the isolated largest root
@@ -161,8 +213,6 @@ def eig3_plane_columns(a00, a01, a02, a11, a12, a22):
     vy = torch.where(clustered, dy, sy)
     vz = torch.where(clustered, dz, sz)
 
-    bad = ~torch.isfinite(a00 + a11 + a22 + off_sq)
-    nan = torch.full_like(a00, float("nan"))
     return tuple(
         torch.where(bad, nan, t) for t in (e0v, e1v, e2v, vx, vy, vz)
     )

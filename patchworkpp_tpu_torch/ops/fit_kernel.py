@@ -6,7 +6,8 @@ moments -> plane-row arithmetic (reference estimate_plane,
 cpp/patchworkpp/src/patchworkpp.cpp:47-75; csrc/fit_math.cuh ``plane_row``
 repeats ``plane_row_from_moments`` operation for operation), and
 ``fused_fit``: the TPU kernel ``fused_fit`` (``fused="onehot"``) as the CUDA
-kernel csrc/fit_onehot.cu, with its plain version ``fused_fit_reference``.
+kernel csrc/fit_onehot.cu (the fit program of csrc/fit_program.cuh with
+plain f32 per-patch sums), with its plain version ``fused_fit_reference``.
 """
 
 from __future__ import annotations
@@ -15,10 +16,9 @@ import ctypes
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from patchworkpp_tpu_torch.ops import f32, nvcc
+from patchworkpp_tpu_torch.ops import f32, fma, nvcc
 from patchworkpp_tpu_torch.ops.eigen3 import eig3_plane_columns
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 
@@ -32,6 +32,7 @@ OUT_GCOUNT = 8
 OUT_COV = 9         # 9:15 (cxx, cxy, cxz, cyy, cyz, czz)
 OUT_SNAP = 16       # 5 per R-VPF snapshot: [gate, nx, ny, nz, d]
 OUT_CARRY2 = 31     # [nx, ny, nz, d] of the plane that defines the final g
+OUT_SVALS = 35      # 35:38 eigenvalues of the final covariance, descending
 OUT_COLS = 48
 
 # Plane-state row: [nx, ny, nz, d, n, cxx, cxy, cxz, cyy, cyz, czz, mx, my, mz]
@@ -99,12 +100,14 @@ def plane_row_from_moments(momp, spx, spy, spz):
     mqy = m[2] / safe_n
     mqz = m[3] / safe_n
     denom = n - 1.0
-    cxx = (m[4] - n * mqx * mqx) / denom
-    cxy = (m[5] - n * mqx * mqy) / denom
-    cxz = (m[6] - n * mqx * mqz) / denom
-    cyy = (m[7] - n * mqy * mqy) / denom
-    cyz = (m[8] - n * mqy * mqz) / denom
-    czz = (m[9] - n * mqz * mqz) / denom
+    # m - (n*mq)*mq with the outer product fused into the subtraction, and
+    # the plane offset's dot product fused, as XLA:CPU compiles them
+    cxx = fma(-(n * mqx), mqx, m[4]) / denom
+    cxy = fma(-(n * mqx), mqy, m[5]) / denom
+    cxz = fma(-(n * mqx), mqz, m[6]) / denom
+    cyy = fma(-(n * mqy), mqy, m[7]) / denom
+    cyz = fma(-(n * mqy), mqz, m[8]) / denom
+    czz = fma(-(n * mqz), mqz, m[9]) / denom
     _, _, _, vx, vy, vz = eig3_plane_columns(cxx, cxy, cxz, cyy, cyz, czz)
     flip = vz < 0
     nx = torch.where(flip, -vx, vx)
@@ -113,7 +116,7 @@ def plane_row_from_moments(momp, spx, spy, spz):
     mx = mqx + spx
     my = mqy + spy
     mz = mqz + spz
-    d = -(nx * mx + ny * my + nz * mz)
+    d = -fma(nz, mz, fma(nx, mx, ny * my))
     nx, ny, nz, d = apply_plane_sentinel(nx, ny, nz, d)
     return torch.stack(
         [nx, ny, nz, d, n, cxx, cxy, cxz, cyy, cyz, czz, mx, my, mz], dim=1
@@ -125,7 +128,6 @@ def plane_row_from_moments(momp, spx, spy, spz):
 SOURCE = nvcc.CSRC / "fit_onehot.cu"
 ONEHOT_SPAD = 512   # the TPU kernel's fixed patch space
 ONEHOT_SNAPS = 3    # and its fixed number of R-VPF snapshot slots
-_KINDS = {"count": 0, "lprsum": 1, "fitseed": 2, "fitdist": 3}
 
 
 def check_onehot_limits(params: Params, spad: int, mode="onehot") -> None:
@@ -157,7 +159,7 @@ def fused_fit_reference(
     each round's three passes compute the same values as the tiled
     program's fused SEEDFIT pass. What differs from K1 is the per-patch
     sum: the TPU kernel's HIGHEST-precision one-hot dots are plain f32
-    sums, here of the tile partials (``ops.tree_sum`` order) added in tile
+    sums, here of the tile sums (``ops.row_sum`` order) added in tile
     order, as the CUDA kernel adds them. Arguments as
     :func:`~patchworkpp_tpu_torch.ops.fit_kernel_grid.fused_fit_grid`."""
     from patchworkpp_tpu_torch.ops.tiled_fit import _reduce_tiles_f32, tiled_fit
@@ -170,12 +172,13 @@ def fused_fit_reference(
 
 
 _ptr, _i32, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# ppk_fit_onehot's parameters, in order
+# The fit program's C entry points (ppk_fit_grid, ppk_fit_onehot): their
+# parameters, in order
 ARGTYPES = (
     _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # xs ys zs valid pad gates consts prog
     _i32,                                            # npasses
-    _ptr, _ptr, _ptr, _ptr,                          # active part cnt (scratch), out
-    _i32, _i32, _i32,                                # nt spad num_lpr
+    _ptr, _ptr,                                      # mask (scratch), out
+    _i32, _i32, _i32, _i32, _i32, _i32,              # nt spad out_cols snap carry2 num_lpr
     _flt, _flt,                                      # th_dist_v uprightness_thr
     _ptr,                                            # stream
 )
@@ -192,41 +195,20 @@ def build_log() -> str:
     return nvcc.build_log(SOURCE)
 
 
-@functools.lru_cache(maxsize=8)
-def _program(params: Params, device: torch.device) -> torch.Tensor:
-    """The unrolled pass program as one (6, npasses) int32 device tensor:
-    kind, peel slot, snapshot slot, gate_alive, final, threshold f32 bits."""
-    passes = build_pass_program(params)
-    th = np.array([ps.th for ps in passes], np.float32).view(np.int32)
-    rows = np.array(
-        [[_KINDS[ps.kind] for ps in passes],
-         [ps.peel_snap for ps in passes],
-         [ps.snap_slot for ps in passes],
-         [int(ps.gate_alive) for ps in passes],
-         [int(ps.is_final) for ps in passes],
-         th],
-        np.int32,
-    )
-    return torch.as_tensor(rows, device=device).contiguous()
-
-
 def fused_fit(
     xs, ys, zs, valid_f, tile_patch, pad_start, gates, consts, params: Params,
 ):
-    """Per-patch fit table of the tiled cloud from the unrolled pass program.
+    """Per-patch fit table of the tiled cloud, with K2's per-patch sums.
 
-    Args:
-      xs, ys, zs, valid_f: (NT, 128) f32 tiled point data.
-      tile_patch: (NT,) int32 patch of each tile (read by the plain
-        version; the kernel finds each patch's tiles from pad_start).
-      pad_start: (513,) int32 tile-aligned run starts.
-      gates: (512, 8) f32 [processed, shift_x, shift_y, shift_z, zone0, 0..].
-      consts: (8,) f32 [margin_thr, 0..].
+    Args as :func:`~patchworkpp_tpu_torch.ops.fit_kernel_grid.fused_fit_grid`,
+    over the fixed 512-patch space (``check_onehot_limits``).
 
     Returns:
       (512, 48) f32 table (``OUT_*`` layout). On a CPU tensor this is
       :func:`fused_fit_reference`; on a CUDA tensor the kernel, or an error.
     """
+    from patchworkpp_tpu_torch.ops.fit_kernel_grid import launch_fit_program
+
     if xs.device.type == "cpu":
         return fused_fit_reference(
             xs, ys, zs, valid_f, tile_patch, pad_start, gates, consts, params
@@ -234,34 +216,10 @@ def fused_fit(
     if xs.device.type != "cuda":
         raise ValueError(f"fit kernel runs on CUDA or CPU tensors, not {xs.device}")
     check_onehot_limits(params, gates.shape[0])
-
-    dev = xs.device
-    nt = xs.shape[0]
-    for name, t in (("xs", xs), ("ys", ys), ("zs", zs), ("valid_f", valid_f)):
-        nvcc.check(name, t, torch.float32, (nt, 128), dev)
-    nvcc.check("tile_patch", tile_patch.reshape(-1), torch.int32, (nt,), dev)
-    nvcc.check("pad_start", pad_start, torch.int32, (ONEHOT_SPAD + 1,), dev)
-    nvcc.check("gates", gates, torch.float32, (ONEHOT_SPAD, 8), dev)
-    nvcc.check("consts", consts, torch.float32, (8,), dev)
-
-    lib = build()
-    prog = _program(params, dev)
-    out = torch.empty((ONEHOT_SPAD, OUT_COLS), dtype=torch.float32, device=dev)
-    active = torch.empty((nt, 128), dtype=torch.float32, device=dev)
-    part = torch.empty((nt, 16), dtype=torch.float32, device=dev)
-    cnt = torch.empty((nt,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ppk_fit_onehot(
-        xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), valid_f.data_ptr(),
-        pad_start.data_ptr(), gates.data_ptr(), consts.data_ptr(),
-        prog.data_ptr(), prog.shape[1],
-        active.data_ptr(), part.data_ptr(), cnt.data_ptr(), out.data_ptr(),
-        nt, ONEHOT_SPAD, params.num_lpr,
-        f32(params.th_dist_v), f32(params.uprightness_thr),
-        stream,
+    out = launch_fit_program(
+        build().ppk_fit_onehot, "K2",
+        xs, ys, zs, valid_f, pad_start, gates, consts, params,
     )
-    if rc != 0:
-        raise RuntimeError(f"fit kernel K2 launch failed: CUDA error {rc}")
     fused_fit.launches += 1
     return out
 

@@ -1,18 +1,20 @@
-"""The fit kernel: the per-patch R-VPF/R-GPF pass program as one CUDA launch.
+"""The fit kernel K1: the per-patch R-VPF/R-GPF pass program as one CUDA launch.
 
 Replaces the TPU's Pallas grid kernel
 ``patchworkpp_tpu/ops/pallas/fit_kernel_grid.py:fused_fit_grid`` (whose
 program the JAX engine runs as XLA ops in ``ops/tiled_fit.py``). The source
-is ``csrc/fit_grid.cu``, built by ``ops/nvcc.py`` at the first call on a
-CUDA tensor. On a CPU tensor the wrapper runs the plain version
+is ``csrc/fit_grid.cu``, the fit program of ``csrc/fit_program.cuh`` with
+K1's per-patch sums, built by ``ops/nvcc.py`` at the first call on a CUDA
+tensor. On a CPU tensor the wrapper runs the plain version
 (``ops/tiled_fit.py:tiled_fit``); on a CUDA tensor it launches the kernel or
-raises.
+raises. :func:`launch_fit_program` launches either fit kernel (K2,
+``ops/fit_kernel.py:fused_fit``, shares the program and its arguments).
 
 The kernel runs one CTA of 16 warps per patch and keeps a patch of at most
-``CAP_TILES`` tiles in shared memory; a longer patch reads its rows from
-global memory, and keeps its per-row active bits in a small global scratch
-that the wrapper allocates. Which patch is which is decided on the card, so
-the call reads nothing back to the host.
+``CAP_TILES`` tiles in shared memory; a longer patch is staged there a
+chunk at a time, and keeps its per-row active bits in a small global
+scratch that the wrapper allocates. Which patch is which is decided on the
+card, so the call reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from patchworkpp_tpu_torch.ops import f32, nvcc
-from patchworkpp_tpu_torch.ops.fit_kernel import build_pass_program
+from patchworkpp_tpu_torch.ops.fit_kernel import ARGTYPES, build_pass_program
 from patchworkpp_tpu_torch.params import Params
 
 K_SEEDFIT, K_FITDIST = 0, 1
@@ -33,16 +35,6 @@ SOURCE = nvcc.CSRC / "fit_grid.cu"
 # kCapTiles of the source: the longest patch (in 128-row tiles) whose rows
 # the kernel keeps in shared memory
 CAP_TILES = 64
-_ptr, _i32, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# ppk_fit_grid's parameters, in order
-ARGTYPES = (
-    _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,  # xs ys zs valid pad gates consts prog
-    _i32,                                            # npasses
-    _ptr, _ptr,                                      # mask (scratch), out
-    _i32, _i32, _i32, _i32, _i32, _i32,              # nt spad out_cols snap carry2 num_lpr
-    _flt, _flt,                                      # th_dist_v uprightness_thr
-    _ptr,                                            # stream
-)
 
 
 def _pass_config(p: Params):
@@ -116,7 +108,7 @@ def fused_fit_grid(
     Returns:
       (S, out_cols) f32 table (``tiled_fit.out_layout``).
     """
-    from patchworkpp_tpu_torch.ops.tiled_fit import out_layout, tiled_fit
+    from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
 
     if xs.device.type == "cpu":
         return tiled_fit(
@@ -124,6 +116,23 @@ def fused_fit_grid(
         )
     if xs.device.type != "cuda":
         raise ValueError(f"fit kernel runs on CUDA or CPU tensors, not {xs.device}")
+
+    out = launch_fit_program(
+        build().ppk_fit_grid, "K1",
+        xs, ys, zs, valid_f, pad_start, gates, consts, params,
+    )
+    fused_fit_grid.launches += 1
+    return out
+
+
+def launch_fit_program(
+    entry, label, xs, ys, zs, valid_f, pad_start, gates, consts, params: Params,
+):
+    """Check the CUDA tensors, allocate the table and the active-bit scratch
+    and call a fit kernel's C entry point (``ppk_fit_grid`` or
+    ``ppk_fit_onehot``, :data:`~patchworkpp_tpu_torch.ops.fit_kernel.ARGTYPES`)
+    on the current stream. Returns the (spad, out_cols) table."""
+    from patchworkpp_tpu_torch.ops.tiled_fit import out_layout
 
     dev = xs.device
     nt = xs.shape[0]
@@ -134,10 +143,9 @@ def fused_fit_grid(
     nvcc.check("gates", gates, torch.float32, (spad, 8), dev)
     nvcc.check("consts", consts, torch.float32, (8,), dev)
     for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
-        if t.data_ptr() % 16:  # the bulk copy's alignment
+        if t.data_ptr() % 16:  # the row copy's float4 loads
             raise ValueError(f"{name} must be 16-byte aligned")
 
-    lib = build()
     prog = _program(params, dev)
     snap_off, carry2_off, out_cols = out_layout(params)
     out = torch.empty((spad, out_cols), dtype=torch.float32, device=dev)
@@ -145,7 +153,7 @@ def fused_fit_grid(
     # in shared memory)
     mask = torch.empty((nt, 4), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ppk_fit_grid(
+    rc = entry(
         xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), valid_f.data_ptr(),
         pad_start.data_ptr(), gates.data_ptr(), consts.data_ptr(),
         prog.data_ptr(), prog.shape[1],
@@ -155,8 +163,7 @@ def fused_fit_grid(
         stream,
     )
     if rc != 0:
-        raise RuntimeError(f"fit kernel launch failed: CUDA error {rc}")
-    fused_fit_grid.launches += 1
+        raise RuntimeError(f"fit kernel {label} launch failed: CUDA error {rc}")
     return out
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from patchworkpp_tpu_torch.ops import fma
+
 
 def masked_moment_features_cols(qx, qy, qz, mask_f) -> torch.Tensor:
     """(P,) shifted coordinate columns + 0/1 f32 mask -> (P, 10) masked
@@ -36,12 +38,13 @@ def moments_to_mean_cov(moments: torch.Tensor, shift: torch.Tensor):
     syy, syz, szz = moments[:, 7], moments[:, 8], moments[:, 9]
     mx, my, mz = mean_q[:, 0], mean_q[:, 1], mean_q[:, 2]
     denom = n - 1.0
-    cxx = (sxx - n * mx * mx) / denom
-    cxy = (sxy - n * mx * my) / denom
-    cxz = (sxz - n * mx * mz) / denom
-    cyy = (syy - n * my * my) / denom
-    cyz = (syz - n * my * mz) / denom
-    czz = (szz - n * mz * mz) / denom
+    # s - (n*m)*m with the outer product fused, as XLA:CPU compiles it
+    cxx = fma(-(n * mx), mx, sxx) / denom
+    cxy = fma(-(n * mx), my, sxy) / denom
+    cxz = fma(-(n * mx), mz, sxz) / denom
+    cyy = fma(-(n * my), my, syy) / denom
+    cyz = fma(-(n * my), mz, syz) / denom
+    czz = fma(-(n * mz), mz, szz) / denom
     cov = torch.stack(
         [
             torch.stack([cxx, cxy, cxz], dim=-1),

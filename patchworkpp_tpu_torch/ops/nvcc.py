@@ -41,10 +41,11 @@ def _nvcc(source: Path) -> str:
 
 def _library(source: Path) -> Path:
     """The library path for ``source``: its name carries a hash of the
-    source and of the shared headers, so an edited kernel is never served
-    from a stale build."""
+    source and of the headers beside it, so an edited kernel (or a variant
+    built from a copy with another header) is never served from a stale
+    build."""
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 

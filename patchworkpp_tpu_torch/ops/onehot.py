@@ -7,8 +7,7 @@ slow on the TPU. Here a lookup is a gather, which returns the same values.
 A reduction is a per-patch sum over the sorted rows in a fixed order, the
 same on the CPU and on the card (``index_add_``'s CUDA atomics have none):
 each patch's run is cut into 128-row chunks, each chunk is summed in
-``ops.tree_sum``'s order, and a patch's chunk sums are added in order. That
-is the rounding profile of the unrolled fit kernel K2's tile sums.
+``ops.tree_sum``'s order, and a patch's chunk sums are added in order.
 """
 
 from __future__ import annotations

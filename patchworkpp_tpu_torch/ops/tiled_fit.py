@@ -17,7 +17,9 @@ Port of ``patchworkpp_tpu/ops/tiled_fit.py``, itself the TPU grid kernel
            plane it tested against and g_count)
 
 Reduction order is part of the contract. Each tile's 128 lanes are summed
-in the fixed pairwise order of ``ops.tree_sum``; each per-tile sum is split
+in XLA:CPU's order (``ops.row_sum``), as the JAX engine sums them; the
+plane distances and the fit math round as XLA:CPU contracts them
+(``ops.plane_dist``, ``ops.fma``). Each per-tile sum is split
 into three round-to-nearest bf16 parts; the parts are accumulated in f32
 over the patch's tiles in tile order and re-added as (hi + mid) + lo, the
 JAX grid kernel's movement profile (a 1-ulp covariance difference once
@@ -31,7 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from patchworkpp_tpu_torch.ops import f32, tree_sum
+from patchworkpp_tpu_torch.ops import f32, plane_dist, row_sum
+from patchworkpp_tpu_torch.ops.eigen3 import eig3_plane_columns
 from patchworkpp_tpu_torch.ops.fit_kernel import (
     OUT_CARRY2,
     OUT_COLS,
@@ -52,12 +55,15 @@ from patchworkpp_tpu_torch.params import Params
 def out_layout(params: Params):
     """(snap_off, carry2_off, out_cols) of the per-patch result table: the
     canonical 48 columns for num_iter <= 3, extended by 5 columns per extra
-    R-VPF snapshot beyond that."""
+    R-VPF snapshot beyond that. The 3 columns after carry2 hold the
+    eigenvalues of the final covariance (``OUT_SVALS`` in the canonical
+    layout), which the frame's tail reads; the JAX package's tail computes
+    them itself, so its extended table is 3 columns narrower."""
     nsnap = params.num_iter if params.enable_RVPF else 0
     if nsnap <= 3:
         return OUT_SNAP, OUT_CARRY2, OUT_COLS
     carry2 = OUT_SNAP + 5 * nsnap
-    return OUT_SNAP, carry2, carry2 + 4
+    return OUT_SNAP, carry2, carry2 + 7
 
 
 def _rne_part(v: torch.Tensor):
@@ -122,7 +128,7 @@ def _tile_moments(xs, ys, zs, sx, sy, sz, mask):
     qx = xs - sx
     qy = ys - sy
     qz = zs - sz
-    return tree_sum(torch.stack(
+    return row_sum(torch.stack(
         [
             mask, qx * mask, qy * mask, qz * mask,
             qx * qx * mask, qx * qy * mask, qx * qz * mask,
@@ -188,10 +194,8 @@ def tiled_fit(
         if kind[i] == K_SEEDFIT:
             if peel[i] >= 0:
                 snap_t = snaps[int(peel[i])][tpc]
-                dist = (
-                    xs * snap_t[:, 1:2] + ys * snap_t[:, 2:3]
-                    + zs * snap_t[:, 3:4] + snap_t[:, 4:5]
-                )
+                dist = plane_dist(xs, ys, zs, snap_t[:, 1:2], snap_t[:, 2:3],
+                                  snap_t[:, 3:4], snap_t[:, 4:5])
                 hit = (
                     (snap_t[:, 0:1] > 0.5) & (torch.abs(dist) < f32(p.th_dist_v))
                 ).to(torch.float32)
@@ -205,7 +209,7 @@ def tiled_fit(
             quota = torch.clamp_min(p.num_lpr - prior, 0)
             rank = _lane_prefix_exclusive(e)
             take = elig * (rank < quota[:, None]).to(torch.float32)
-            per = torch.stack([tree_sum(zs * take), tree_sum(take)], dim=1)
+            per = torch.stack([row_sum(zs * take), row_sum(take)], dim=1)
             tot = reduce(per, idx, ok)
             cnt = tot[:, 1]
             lpr_p = torch.where(cnt > 0, tot[:, 0] / torch.clamp_min(cnt, 1.0), zero)
@@ -218,10 +222,8 @@ def tiled_fit(
             if final[i]:
                 final_tab = plane[:, 0:4]
             pl_t = plane[tpc, 0:4]
-            dist = (
-                xs * pl_t[:, 0:1] + ys * pl_t[:, 1:2]
-                + zs * pl_t[:, 2:3] + pl_t[:, 3:4]
-            )
+            dist = plane_dist(xs, ys, zs, pl_t[:, 0:1], pl_t[:, 1:2],
+                              pl_t[:, 2:3], pl_t[:, 3:4])
             mask = active * (dist < th).to(torch.float32)
 
         momp = reduce(_tile_moments(xs, ys, zs, sx, sy, sz, mask), idx, ok)
@@ -241,8 +243,9 @@ def tiled_fit(
             snaps[int(snap[i])] = torch.cat([vert[:, None], plane[:, 0:4]], dim=1)
             alive = vert
 
+    svals = torch.stack(eig3_plane_columns(*plane[:, 5:11].unbind(1), vector=False), dim=1)
     # [normal(3), d, mean(3), n, gcount, cov(6), pad, snaps(5*nsnap),
-    #  carry2(4), pad]
+    #  carry2(4), svals(3), pad]
     out = torch.cat(
         [
             plane[:, 0:4],
@@ -253,7 +256,8 @@ def tiled_fit(
             torch.zeros((spad, 1), device=dev),
             *snaps,
             final_tab,
-            torch.zeros((spad, out_cols - (carry2_off + 4)), device=dev),
+            svals,
+            torch.zeros((spad, out_cols - (carry2_off + 7)), device=dev),
         ],
         dim=1,
     )

@@ -2,9 +2,11 @@
 and the binning's float32 ``atan2``.
 
 Built from add/mul/sqrt only, term by term after the JAX package, so that
-the eigensolver gives the same bits here, in the JAX package and in the
-CUDA fit kernels (csrc/fit_grid.cu and csrc/fit_onehot.cu repeat these
-polynomials):
+the eigensolver gives the same bits here, in the JAX package on the CPU and
+in the CUDA fit kernels (csrc/fit_math.cuh repeats these polynomials).
+XLA:CPU fuses each Horner step's multiply into its add, and the last
+step's products of ``cos(phi + 2pi/3)`` into one subtraction, so these
+steps are ``ops.fma``:
 
 - ``acos(r)`` on [-1, 1]: Hastings' approximation (Abramowitz & Stegun
   4.4.45, 8 terms), |err| < 2e-8;
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from patchworkpp_tpu_torch.ops import f32, sqrt
+from patchworkpp_tpu_torch.ops import f32, fma, sqrt
 
 _PI = 3.14159265358979323846
 
@@ -42,7 +44,7 @@ def acos_poly(x: torch.Tensor) -> torch.Tensor:
     ax = torch.abs(x)
     poly = torch.full_like(x, f32(_ACOS_COEF[-1]))
     for c in _ACOS_COEF[-2::-1]:
-        poly = poly * ax + f32(c)
+        poly = fma(poly, ax, f32(c))
     pos = sqrt(torch.clamp_min(1.0 - ax, 0.0)) * poly
     return torch.where(x >= 0, pos, f32(_PI) - pos)
 
@@ -52,7 +54,7 @@ def sin_narrow(phi: torch.Tensor) -> torch.Tensor:
     p2 = phi * phi
     s = torch.full_like(phi, f32(-1.0 / 39916800.0))
     for c in (1.0 / 362880.0, -1.0 / 5040.0, 1.0 / 120.0, -1.0 / 6.0, 1.0):
-        s = s * p2 + f32(c)
+        s = fma(s, p2, f32(c))
     return s * phi
 
 
@@ -62,7 +64,7 @@ def cos_narrow(phi: torch.Tensor) -> torch.Tensor:
     s = torch.full_like(phi, f32(1.0 / 479001600.0))
     for c in (-1.0 / 3628800.0, 1.0 / 40320.0, -1.0 / 720.0, 1.0 / 24.0,
               -1.0 / 2.0, 1.0):
-        s = s * p2 + f32(c)
+        s = fma(s, p2, f32(c))
     return s
 
 
@@ -70,7 +72,7 @@ def cardano_cos_pair(r: torch.Tensor):
     """(cos(phi), cos(phi + 2pi/3)) for phi = acos(r)/3, r in [-1, 1]."""
     phi = acos_poly(r) * f32(1.0 / 3.0)
     c, s = cos_narrow(phi), sin_narrow(phi)
-    c_hi = f32(-0.5) * c - f32(0.8660254037844386) * s
+    c_hi = fma(f32(-0.5), c, -(f32(0.8660254037844386) * s))
     return c, c_hi
 
 

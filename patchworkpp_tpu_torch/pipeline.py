@@ -27,11 +27,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from patchworkpp_tpu_torch.ops import div, f32, sqrt, tree_sum
+from patchworkpp_tpu_torch.ops import div, f32, fma, plane_dist, sqrt, tree_sum
 from patchworkpp_tpu_torch.ops.binning import bin_points, factored_patch_counts
 from patchworkpp_tpu_torch.ops.eigen3 import eigh3x3_descending
 from patchworkpp_tpu_torch.ops.fit_kernel import (
-    OUT_COV,
     OUT_GCOUNT,
     OUT_MEAN,
     OUT_NORMAL,
@@ -201,8 +200,8 @@ def _fit_planes(
     )
     n, mean, cov = moments_to_mean_cov(mom, shift)
     svals, normal = eigh3x3_descending(cov)
-    d = -((normal[:, 0] * mean[:, 0] + normal[:, 1] * mean[:, 1])
-          + normal[:, 2] * mean[:, 2])
+    d = -fma(normal[:, 2], mean[:, 2], fma(normal[:, 0], mean[:, 0],
+                                           normal[:, 1] * mean[:, 1]))
     # a 1-point fit's non-finite plane -> the sentinel [0, 0, 0, 1e30];
     # decision-identical to ops/fit_kernel.py:apply_plane_sentinel
     fin = torch.isfinite(normal).all(dim=1) & torch.isfinite(d)
@@ -546,9 +545,8 @@ def make_frame_fn(
             lk = label_tab[pid_b]
 
             def _plane_dist(c0):
-                return (
-                    (xb * lk[:, c0] + yb * lk[:, c0 + 1]) + zb * lk[:, c0 + 2]
-                ) + lk[:, c0 + 3]
+                return plane_dist(xb, yb, zb, lk[:, c0], lk[:, c0 + 1],
+                                  lk[:, c0 + 2], lk[:, c0 + 3])
 
             dist_o = _plane_dist(0)
             peeled = torch.zeros(pid_b.shape[0], dtype=torch.bool, device=dev)
@@ -640,16 +638,9 @@ def make_frame_fn(
         normal = out[:, OUT_NORMAL:OUT_NORMAL + 3]
         mean = out[:, OUT_MEAN:OUT_MEAN + 3]
         g_count = out[:, OUT_GCOUNT]
-        c = out[:, OUT_COV:OUT_COV + 6]
-        cov = torch.stack(
-            [
-                torch.stack([c[:, 0], c[:, 1], c[:, 2]], dim=-1),
-                torch.stack([c[:, 1], c[:, 3], c[:, 4]], dim=-1),
-                torch.stack([c[:, 2], c[:, 4], c[:, 5]], dim=-1),
-            ],
-            dim=-2,
-        )
-        svals, _ = eigh3x3_descending(cov)
+        # the final covariance's eigenvalues, which the fit kernels write
+        # (the JAX package's tail computes them from the covariance columns)
+        svals = out[:, carry2_off + 4:carry2_off + 7]
 
         # R-VPF snapshots: kernel layout [gate, nx, ny, nz, d] -> label-pass
         # layout [nx, ny, nz, d, gate]
@@ -691,7 +682,7 @@ def make_frame_fn(
         carry = _PlaneCarry(n=zeros, mean=zeros3, normal=zeros3, d=zeros, svals=zeros3)
 
         def _dist(look):
-            return ((sp.x * look[0] + sp.y * look[1]) + sp.z * look[2]) + look[3]
+            return plane_dist(sp.x, sp.y, sp.z, look[0], look[1], look[2], look[3])
 
         # R-VPF (reference :477-508): peel vertical planes, zone 0 only
         vpf_tables = []

@@ -1,15 +1,14 @@
 """Port eigensolver and trig polynomials vs the JAX package (CPU).
 
-The port repeats the JAX expressions term by term, but XLA:CPU compiles
-them with its own contraction and rounding (its polynomial and root
-evaluations differ by 1-2 ulp from IEEE step-by-step float32), so the two
-are not bitwise equal; the port's float32 steps are the ones the CUDA fit
-kernel performs. Measured here on random PSD batches: the largest
-eigenvalue agrees to ~10 eps*||A||, the two smaller ones to ~1.6e3
-eps*||A|| (Cardano's clustered roots carry O(sqrt(eps)*||A||) error, JAX
-eigen3.py docstring), and the plane normal to ~6e-4 rad, with both
-packages ~5e-4 rad from the float64 truth. The tolerances are those
-error classes; the ulp counts are printed.
+The port repeats the JAX expressions term by term and rounds them as
+XLA:CPU's compiled function does, fused multiply-adds included
+(ops/eigen3.py), so the eigenvalues, the polynomials and the separated
+pair's normal are the JAX function's bits. A clustered pair's normal is
+not: XLA:CPU computes its ``1 / sqrt`` from the CPU's reciprocal
+square-root estimate and two Newton steps, the port the correctly rounded
+value. There the normal agrees to the deflation's error class, ~6e-4 rad,
+with both packages ~5e-4 rad from the float64 truth; the angles are
+printed.
 """
 
 from __future__ import annotations
@@ -52,10 +51,6 @@ def _cols(c):
             ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))]
 
 
-def _ulps(a, b):
-    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
-
-
 @pytest.mark.parametrize("kind,seed", [("psd", 0), ("psd", 1), ("clustered", 2)])
 def test_eig3_plane_columns_matches_jax(kind, seed):
     c = _psd(seed) if kind == "psd" else _clustered(seed)
@@ -63,23 +58,27 @@ def test_eig3_plane_columns_matches_jax(kind, seed):
     j = [np.asarray(x) for x in jax.jit(j_eig)(*map(jnp.asarray, cols))]
     t = [x.numpy() for x in t_eig(*map(torch.from_numpy, cols))]
 
+    for i in range(3):  # eigenvalues: the JAX function's bits
+        np.testing.assert_array_equal(t[i].view(np.int32), j[i].view(np.int32))
     w, v = np.linalg.eigh(c.astype(np.float64))
     fro = np.linalg.norm(c.astype(np.float64), axis=(1, 2))
-    for i in range(3):
-        print(f"{kind} e{i}: max {int(_ulps(j[i], t[i]).max())} ulp")
-        tol = (32 * EPS32 if i == 0 else 4 * np.sqrt(EPS32)) * fro
-        np.testing.assert_array_less(np.abs(j[i] - t[i]), tol + 1e-30)
     np.testing.assert_array_less(np.abs(t[0] - w[:, 2]), 32 * EPS32 * fro + 1e-30)
 
     def angle(a, b):
         return np.arccos(np.clip(np.abs(np.sum(a * b, axis=1)), 0.0, 1.0))
 
-    # normal: up to sign, within 2e-3 rad of JAX and 1e-3 rad of float64
-    vj = np.stack(j[3:], 1).astype(np.float64)
-    vt = np.stack(t[3:], 1).astype(np.float64)
-    ang, ang_true = angle(vj, vt), angle(vt, v[:, :, 0])
-    print(f"{kind} vmin: max angle {ang.max():.3e} rad to JAX, "
-          f"{ang_true.max():.3e} rad to float64")
+    # the normal: bit for bit where the pair is clearly separated (the
+    # solver's test is e1 - e2 > 1e-2 * ||A||_F); a clustered pair's within
+    # 2e-3 rad of JAX and 1e-3 rad of float64
+    clustered = (j[1] - j[2]) <= 1.02e-2 * fro
+    vj = np.stack(j[3:], 1)
+    vt = np.stack(t[3:], 1)
+    assert (~clustered).sum() > 3000 if kind == "psd" else clustered.all()
+    np.testing.assert_array_equal(vt[~clustered], vj[~clustered])
+    ang = angle(vj.astype(np.float64), vt.astype(np.float64))
+    ang_true = angle(vt.astype(np.float64), v[:, :, 0])
+    print(f"{kind} vmin: {int(clustered.sum())} clustered, max angle {ang.max():.3e} rad "
+          f"to JAX, {ang_true.max():.3e} rad to float64")
     assert ang.max() < 2e-3 and ang_true.max() < 1e-3
 
 
@@ -89,10 +88,10 @@ def test_eigh3x3_descending_sign_and_order():
     et, vt = (x.numpy() for x in t_eigh(torch.from_numpy(c)))
     assert (vt[:, 2] >= 0).all()
     assert (et[:, 0] >= et[:, 1]).all() and (et[:, 1] >= et[:, 2] - 1e-6).all()
-    fro = np.linalg.norm(c, axis=(1, 2))
-    np.testing.assert_array_less(
-        np.abs(ej - et).max(1), 4 * np.sqrt(EPS32) * fro + 1e-30
-    )
+    np.testing.assert_array_equal(et, ej)
+    cols = [torch.from_numpy(x) for x in _cols(c)]
+    values = torch.stack(t_eig(*cols, vector=False), dim=-1).numpy()
+    np.testing.assert_array_equal(values, et)
 
 
 def test_eig_nan_and_degenerate_inputs():
@@ -117,9 +116,9 @@ def test_trig_polynomials_match_jax():
         (jtrig.acos_poly, ttrig.acos_poly, r),
         (jtrig.sin_narrow, ttrig.sin_narrow, phi),
         (jtrig.cos_narrow, ttrig.cos_narrow, phi),
+        (lambda x: jtrig.cardano_cos_pair(x)[1], lambda x: ttrig.cardano_cos_pair(x)[1], r),
     ]
     for jf, tf, x in pairs:
         a = np.asarray(jax.jit(jf)(jnp.asarray(x)))
         b = tf(torch.from_numpy(x)).numpy()
-        print(f"{tf.__name__}: max {int(_ulps(a, b).max())} ulp")
-        np.testing.assert_allclose(a, b, rtol=8 * EPS32, atol=8 * EPS32)
+        np.testing.assert_array_equal(b.view(np.int32), a.view(np.int32))

@@ -6,8 +6,8 @@
   unrolled fit kernel K2's plain version) give the labels of the JAX
   package's same engines (the onehot one in interpret mode), fresh and
   through two adapted frames. The adaptive state is held to the tolerances
-  of tests/test_torch_frame.py (integers equal; state floats within the
-  eigensolver's error class, reasons given there).
+  of tests/test_torch_frame.py (integers equal), the flatness state to
+  ``ENGINE_STATE_ATOL`` (reason given there).
 - On the boundary-probe clouds the port's tiled, onehot and unfused
   engines give equal labels, as the JAX engines do
   (test_fuzz_parity.py:test_fuzz_engines_agree_on_edges).
@@ -29,7 +29,20 @@ from patchworkpp_tpu.params import Params as JParams
 from patchworkpp_tpu.pipeline import make_frame_fn as j_make_frame_fn
 from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
 from test_fuzz_parity import CAP, synth_cloud
-from test_torch_frame import _assert_state_close, _chain, _one_torch_thread, _padded  # noqa: F401
+from test_torch_frame import (  # noqa: F401
+    STATE_ATOL,
+    _assert_state_close,
+    _chain,
+    _one_torch_thread,
+    _padded,
+)
+
+# These engines' per-patch sums are added in another order than the JAX
+# engines' (one-hot dots), so their covariances, and the flatness state
+# (smallest eigenvalues) built from them, agree to a few ulp of the sums
+# through Cardano's small-root conditioning; the largest difference seen is
+# 1.2e-6 (the unfused engine).
+ENGINE_STATE_ATOL = {**STATE_ATOL, "flatness_thr": 1e-5, "flat_buf": 1e-5}
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +85,7 @@ def test_engine_labels_match_jax(jax_frames, port_frames, mode, seed):
         assert int(tr.num_ground) == int(jr.num_ground) > 0
         np.testing.assert_array_equal(tr.patch_processed.numpy(),
                                       np.asarray(jr.patch_processed), err_msg=label)
-        _assert_state_close(js, ts, label)
+        _assert_state_close(js, ts, label, ENGINE_STATE_ATOL)
 
 
 @pytest.mark.parametrize("seed", range(5))

@@ -5,18 +5,20 @@ kernel ``fused_fit_grid`` (interpret mode), at capacity 8192.
 Both sides get the SAME tiled inputs (built once by the port's frame from
 ``synth_cloud``), so the comparison isolates the fit program. Integer
 columns (n, g_count, the R-VPF snapshot gates) must be equal. Float
-columns agree to a few ulp: the moment sums follow one rounding profile,
-but XLA:CPU evaluates the eigensolver's polynomials and roots with its own
-contraction, 1-2 ulp off step-by-step float32 (tests/test_torch_eigen.py);
-the largest difference seen is 2.7e-5, on an R-VPF snapshot plane offset d.
-The tolerance is atol 5e-5 + rtol 5e-5, under a tenth of the 0.125 m
-th_dist margin any label decision reads, and the worst difference is
-printed.
+columns agree to a few ulp: the tile sums follow XLA:CPU's order
+(``ops.row_sum``) and the fit math its fused multiply-adds (``ops.fma``),
+but the one-hot dot that adds a patch's tiles in the JAX engine has its own
+order, and a clustered pair's normal its own 1/sqrt
+(tests/test_torch_eigen.py). The tolerance is atol 5e-5 + rtol 5e-5, under
+a tenth of the 0.125 m th_dist margin any label decision reads, and the
+worst difference is printed. On chip_smoke.py's 64-beam scan the entries
+beyond 5e-5 are counted (plane offsets d of clustered pairs, 30 m from the
+sensor) and held under a bound.
 
 The crowded-patch and one-tile clouds of ``chip_smoke.py`` (capacity
-131072) drive the kernel's two row sources on the card (a patch longer than
-its shared-memory cap reads global memory); here their plain fits are held
-against JAX's under the same tolerance. Two binding tests check what no CPU
+131072) drive the kernels' two row sources on the card (a patch longer than
+their shared-memory cap is staged chunk by chunk); here their plain fits are
+held against JAX's under the same tolerance. Two binding tests check what no CPU
 run of a kernel can: that each wrapper's ctypes argument types follow the
 ``extern "C"`` signature (a pointer passed as an int is cut to 32 bits), and
 that the wrapper's ``CAP_TILES`` is the source's ``kCapTiles``.
@@ -43,11 +45,12 @@ from patchworkpp_tpu.ops.tiled_fit import out_layout as j_out_layout
 from patchworkpp_tpu.ops.tiled_fit import tiled_fit as j_tiled_fit
 from patchworkpp_tpu.params import Params as JParams
 from patchworkpp_tpu.pipeline import FrameComm
-from chip_smoke import CAPACITY, make_crowded_scan, make_one_tile_scan
+from chip_smoke import CAPACITY, make_crowded_scan, make_one_tile_scan, make_scan
 from patchworkpp_tpu_torch import CZMGeometry, Params, init_state
 from patchworkpp_tpu_torch.ops import fit_kernel as fk
 from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
-from patchworkpp_tpu_torch.ops.fit_kernel import OUT_GCOUNT, OUT_N
+from patchworkpp_tpu_torch.ops.eigen3 import eig3_plane_columns
+from patchworkpp_tpu_torch.ops.fit_kernel import OUT_COLS, OUT_COV, OUT_GCOUNT, OUT_N, OUT_SVALS
 from patchworkpp_tpu_torch.ops.tiled_fit import (
     _reduce_tiles_split3,
     _rne_bf16_split3,
@@ -117,20 +120,29 @@ def _run_jax(fn, fi) -> np.ndarray:
     ))
 
 
+def _without_svals(t: np.ndarray, p: Params) -> np.ndarray:
+    """A table without the port's eigenvalue columns (carry2 + 4 .. + 7),
+    which the JAX package's table leaves zero or lacks."""
+    sv = out_layout(p)[1] + 4
+    return np.delete(t, [c for c in range(sv, sv + 3) if c < t.shape[1]], axis=1)
+
+
 def _compare(ref: np.ndarray, out: np.ndarray, p: Params, rows=None, label=""):
-    """Integer columns equal, float columns within ATOL + RTOL * |ref|."""
+    """Integer columns equal, float columns within ATOL + RTOL * |ref|;
+    the port's eigenvalue columns are left out (``_without_svals``)."""
     snap_off, carry2_off, _ = out_layout(p)
     if rows is not None:
         ref, out = ref[rows], out[rows]
+    ref, out = _without_svals(ref, p), _without_svals(out, p)
     int_cols = [OUT_N, OUT_GCOUNT] + list(range(snap_off, carry2_off, 5))
     np.testing.assert_array_equal(out[:, int_cols], ref[:, int_cols],
                                   err_msg=f"{label} integer columns")
-    # A one-point fit's covariance divides by n - 1 = 0: the port's exact
-    # float32 steps give 0/0 = NaN, XLA:CPU's contracted numerator leaves a
-    # residual and gives +-inf. Both make the sentinel plane; the positions
-    # must match, the values need not.
+    # A one-point fit's covariance divides by n - 1 = 0: the fused numerator
+    # leaves a residual and gives +-inf (or 0/0 = NaN), in XLA:CPU and in
+    # the port alike, and both make the sentinel plane
     fin = np.isfinite(ref)
     np.testing.assert_array_equal(np.isfinite(out), fin, err_msg=f"{label} non-finite")
+    np.testing.assert_array_equal(out[~fin], ref[~fin], err_msg=f"{label} non-finite")
     ref64 = np.where(fin, ref, 0.0).astype(np.float64)
     err = np.abs(np.where(fin, out, 0.0).astype(np.float64) - ref64)
     print(f"{label}: max |err| {err.max():.3e} (column {int(err.max(0).argmax())}), "
@@ -184,15 +196,25 @@ def test_pass_program_and_layout_match_jax(kw):
     for a, b in zip(jc[1:], tc[1:]):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    assert j_out_layout(JParams(**kw)) == out_layout(Params(**kw))
+    # the same offsets; an extended table holds the 3 eigenvalue columns
+    # past the JAX package's last column, the canonical one inside its 48
+    js, jc2, jcols = j_out_layout(JParams(**kw))
+    ts, tc2, tcols = out_layout(Params(**kw))
+    assert (js, jc2) == (ts, tc2)
+    assert tcols == (jcols if jcols == OUT_COLS else jcols + 3)
 
 
 @pytest.mark.parametrize("seed", range(5))
 def test_plain_fit_matches_jax_tiled_fit(jax_tiled_fit, seed):
     p = Params()
     fi = _fit_inputs(seed, p)
-    _compare(_run_jax(jax_tiled_fit(3), fi), _plain(fi, p), p,
-             label=f"seed {seed}")
+    out = _plain(fi, p)
+    _compare(_run_jax(jax_tiled_fit(3), fi), out, p, label=f"seed {seed}")
+    # the eigenvalue columns: the final covariance's, as the JAX package's
+    # tail computes them (tests/test_torch_eigen.py holds these bits)
+    cov = torch.from_numpy(np.ascontiguousarray(out[:, OUT_COV:OUT_COV + 6]))
+    want = torch.stack(eig3_plane_columns(*cov.unbind(1), vector=False), dim=1).numpy()
+    np.testing.assert_array_equal(out[:, OUT_SVALS:OUT_SVALS + 3], want)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -202,7 +224,7 @@ def test_plain_fit_num_iter4_matches_jax_tiled_fit(jax_tiled_fit, seed):
     p = Params(num_iter=4)
     fi = _fit_inputs(seed, p)
     out = _plain(fi, p)
-    assert out_layout(p)[1:] == (16 + 5 * 4, 16 + 5 * 4 + 4) == (36, out.shape[1])
+    assert out_layout(p)[1:] == (16 + 5 * 4, 16 + 5 * 4 + 7) == (36, out.shape[1])
     _compare(_run_jax(jax_tiled_fit(4), fi), out, p, label=f"num_iter=4 seed {seed}")
 
 
@@ -220,6 +242,28 @@ def test_plain_fit_matches_jax_on_kernel_branch_clouds(jax_tiled_fit, cloud):
     else:
         assert int(tiles.max()) == 1 and len(tiles) > 400
     _compare(_run_jax(jax_tiled_fit(3), fi), _plain(fi, p), p, label=cloud)
+
+
+def test_plain_fit_on_64_beam_scan_matches_jax(jax_tiled_fit):
+    """chip_smoke.py's 64-beam scan at capacity 131072: integer columns
+    equal, and few float entries beyond 5e-5. Those left are clustered
+    pairs' normals (their 1/sqrt, tests/test_torch_eigen.py) and the plane
+    offsets d they move, 30 m from the sensor; 116 of them on an AVX-512
+    host, whose reciprocal square-root estimate they depend on."""
+    p = Params()
+    fi = _cloud_fit_inputs(make_scan(0), p, CAPACITY)
+    ref, out = _run_jax(jax_tiled_fit(3), fi), _plain(fi, p)
+    rows = fi.counts.numpy() > 0  # the frame masks the rest (pipeline.py)
+    ref, out = _without_svals(ref[rows], p), _without_svals(out[rows], p)
+    snap_off, carry2_off, _ = out_layout(p)
+    int_cols = [OUT_N, OUT_GCOUNT] + list(range(snap_off, carry2_off, 5))
+    np.testing.assert_array_equal(out[:, int_cols], ref[:, int_cols])
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    err = np.abs(np.nan_to_num(out.astype(np.float64) - ref))
+    beyond = int((err > ATOL).sum())
+    print(f"64-beam scan: {beyond} entries beyond {ATOL}, "
+          f"{int((err > 0).any(1).sum())} of {len(ref)} rows differ, max {err.max():.3e}")
+    assert beyond < 250
 
 
 def _extern_c_argtypes(source):
@@ -249,8 +293,11 @@ def test_ctypes_argtypes_follow_extern_c_signature(module):
 
 
 def test_cap_tiles_is_the_kernel_constant():
-    m = re.search(r"constexpr int kCapTiles = (\d+);", fkg.SOURCE.read_text())
+    src = (fkg.SOURCE.parent / "fit_program.cuh").read_text()
+    m = re.search(r"constexpr int kCapTiles = (\d+);", src)
     assert m and int(m.group(1)) == fkg.CAP_TILES
+    for module in (fkg, fk):  # both kernels are the program of that header
+        assert '#include "fit_program.cuh"' in module.SOURCE.read_text()
 
 
 def test_plain_fit_matches_grid_kernel_interpret():
@@ -301,7 +348,7 @@ def test_wrapper_refuses_other_devices():
 def test_cuda_kernel_matches_plain_on_card(num_iter, cloud):
     """Kernel vs plain version on the same CUDA tensors: the same float
     operations in the same order (contraction off), so bit for bit; the
-    crowded cloud's longest patch reads its rows from global memory."""
+    crowded cloud's longest patch is staged chunk by chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     p = Params(num_iter=num_iter)

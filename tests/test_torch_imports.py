@@ -47,7 +47,7 @@ def test_port_has_the_expected_files():
         "chip_smoke.py",
     ):
         assert want in names
-    for src in ("fit_grid.cu", "fit_onehot.cu", "fit_math.cuh"):
+    for src in ("fit_grid.cu", "fit_onehot.cu", "fit_program.cuh", "fit_math.cuh"):
         assert (ROOT / "patchworkpp_tpu_torch" / "csrc" / src).exists()
 
 

@@ -7,9 +7,9 @@ Both sides get the SAME tiled inputs (built once by the port's frame from
 ``synth_cloud``), so the comparison isolates the fit program. Integer
 columns (n, g_count, the R-VPF snapshot gates) must be equal. Float columns
 agree to a few ulp, within atol 5e-5 + rtol 5e-5: the port adds the same
-tile partials in tile order, but XLA:CPU sums a one-hot dot's terms and a
-tile's 128 lanes in its own order and evaluates the eigensolver with its
-own contraction (tests/test_torch_eigen.py); the largest difference seen is
+tile sums in tile order, but XLA:CPU sums a one-hot dot's terms in its own
+order and a clustered pair's normal has its own 1/sqrt
+(tests/test_torch_eigen.py); the largest difference seen is
 3.0e-5, on an R-VPF snapshot plane offset d (seed 0). That is under a tenth
 of the 0.125 m th_dist margin a label decision reads. Column 15, which the
 Pallas kernel never writes, is compared as zero.
@@ -33,7 +33,14 @@ from patchworkpp_tpu_torch.ops import fit_kernel as fk
 from patchworkpp_tpu_torch.ops.fit_kernel import OUT_COLS, fused_fit_reference
 from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
 from patchworkpp_tpu_torch.pipeline import build_static_tables, make_frame_fn
-from test_torch_fit import PAD_COL, _compare, _fit_inputs, _one_torch_thread  # noqa: F401
+from chip_smoke import CAPACITY, make_crowded_scan, make_one_tile_scan
+from test_torch_fit import (  # noqa: F401
+    PAD_COL,
+    _cloud_fit_inputs,
+    _compare,
+    _fit_inputs,
+    _one_torch_thread,
+)
 
 # a CZM whose patch space is not the kernels' 512 (632 patches, spad 640)
 WIDE_CZM = {"num_sectors_each_zone": (16, 32, 54, 64)}
@@ -75,6 +82,18 @@ def test_plain_k2_integer_columns_equal_k1(seed):
     fi = _fit_inputs(seed, p, exact_edges=True)
     k1 = tiled_fit(*_args(fi)[:7], fi.consts[0], p).numpy()
     _compare(k1, fused_fit_reference(*_args(fi), p).numpy(), p, label=f"K2 vs K1 seed {seed}")
+
+
+@pytest.mark.parametrize("cloud", ["crowded", "one_tile"])
+def test_plain_k2_integer_columns_equal_k1_on_kernel_branch_clouds(cloud):
+    """chip_smoke.py's crowded-patch cloud (one patch staged chunk by chunk
+    in the kernels) and one-tile cloud, at capacity 131072: K2's and K1's
+    plain versions agree on every integer column."""
+    p = Params()
+    make = {"crowded": make_crowded_scan, "one_tile": make_one_tile_scan}[cloud]
+    fi = _cloud_fit_inputs(make(0), p, CAPACITY)
+    k1 = tiled_fit(*_args(fi)[:7], fi.consts[0], p).numpy()
+    _compare(k1, fused_fit_reference(*_args(fi), p).numpy(), p, label=f"K2 vs K1 {cloud}")
 
 
 @pytest.mark.parametrize("mode", ["onehot", "grid", "grid_iota", True])
