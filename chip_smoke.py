@@ -8,9 +8,9 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    csrc/fit_onehot.cu (both the fit program of csrc/fit_program.cuh, with
    their own per-patch sums), with one nvcc each started together (build
    time, ptxas reports);
-2. make a synthetic KITTI-scale scan from --seed (64 beams over 360 deg, a
-   tilted noisy ground plane, walls, boxes, reflected noise below ground,
-   points out of range);
+2. make a synthetic KITTI-scale scan from --seed (io/synthetic.py: 64
+   beams over 360 deg, a tilted noisy ground plane, walls, boxes, reflected
+   noise below ground, points out of range);
 3. hold each fit kernel against its plain PyTorch version on the card and
    on the CPU, on that scan's tiled inputs at capacity 131072, on a
    crowded-patch cloud whose largest patch holds more tiles than the kernels
@@ -27,6 +27,21 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the unfused engine (fused=False) for 3 frames, labels equal to the CPU
    unfused engine's; the labels that differ between the three engines are
    printed, not asserted;
+4b. the serving surface: for each preset (models/presets.py:
+   patchwork_params, R-VPF and TGR off; ros_launch_params, num_min_pts=0)
+   K1 bit for bit against its plain version on that preset's tiled inputs,
+   and 3 chained facade frames on the card equal to the CPU path's; the
+   facade's estimate_ground_sequence of 6 scans equal to the estimate_ground
+   loop (labels and state, bit for bit) with one device -> host copy, and a
+   quarter-density scan bucketed at capacity 131072 equal to capacity 32768;
+   the streaming server (serve/server.py) in a closed loop over 20 chained
+   scans, each answered within a timeout by a live worker, labels and state
+   equal to a facade's, K1 launched 20 times and K2 none (counts set to 0
+   just before), its p50/p95 service latency and timing report printed;
+   a 6-scan backlog through batch_max=2 equal to the per-frame facade; two
+   streams of serve/multi_stream.py equal to two facades; the compat
+   module's getters equal to the facade's result; and cli/bench.py run in
+   its own process at a short setting, its JSON line parsed and printed;
 5. time both kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
    after warm-up; print K1's time per walk of
@@ -66,143 +81,12 @@ SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep's unit at the H100's top SM clo
 # both are held to that work.
 FIT_OPS_PER_ROW_PASS = 40
 UNFUSED_FRAMES = 3
+SERVER_FRAMES = 20
 # A kernel and its plain version run the same float operations in the same
 # order (nvcc's contraction off, the plain version's fused multiply-adds as
 # explicit ones), so their tables must agree bit for bit (tolerance 0).
 # CPU path vs card path, adaptive state floats: within STATE_ATOL.
 STATE_ATOL = 1e-5
-
-
-def make_scan(seed: int, frame: int = 0) -> np.ndarray:
-    """Synthetic 64-beam scan, float32 (N, 4) x, y, z, intensity.
-
-    The scene (ground tilt, walls, boxes) is fixed by ``seed``; ``frame``
-    moves the sensor 5 cm and turns it 1 mrad per frame and draws new noise.
-    """
-    scene = np.random.default_rng(seed)
-    rng = np.random.default_rng([seed, frame])
-    h = 1.73
-    tx, ty = scene.uniform(-0.015, 0.015, 2)
-    walls = [
-        (scene.uniform(8, 40), scene.uniform(0, 2 * np.pi),
-         scene.uniform(0, np.pi), scene.uniform(5, 15), scene.uniform(2, 6))
-        for _ in range(6)
-    ]
-    boxes = []
-    for _ in range(12):
-        r, th = scene.uniform(5, 30), scene.uniform(0, 2 * np.pi)
-        boxes.append((r * np.cos(th), r * np.sin(th), scene.uniform(1.5, 2.5),
-                      scene.uniform(0.8, 1.2), scene.uniform(-0.3, 0.2)))
-
-    ox, oy = 0.05 * frame, 0.0
-    n_az = 1960
-    elev = np.deg2rad(np.linspace(-24.8, 2.0, 64))
-    az = (np.arange(n_az) + rng.uniform()) * (2 * np.pi / n_az) + 1e-3 * frame
-    e, a = np.meshgrid(elev, az, indexing="ij")
-    dx = (np.cos(e) * np.cos(a)).ravel()
-    dy = (np.cos(e) * np.sin(a)).ravel()
-    dz = np.sin(e).ravel()
-    t = np.full(dx.shape, np.inf)
-    inten = rng.uniform(0.2, 0.6, dx.shape)
-
-    # ground z = -h + tx x + ty y
-    den = dz - tx * dx - ty * dy
-    with np.errstate(divide="ignore", invalid="ignore"):
-        tg = (-h + tx * ox + ty * oy) / den
-    t = np.where((tg > 0) & np.isfinite(tg), tg, t)
-
-    for d, th, head, half, top in walls:
-        cx, cy = d * np.cos(th), d * np.sin(th)
-        nx, ny = np.cos(head), np.sin(head)
-        den = nx * dx + ny * dy
-        with np.errstate(divide="ignore", invalid="ignore"):
-            tw = (nx * (cx - ox) + ny * (cy - oy)) / den
-        px, py, pz = ox + tw * dx, oy + tw * dy, tw * dz
-        along = (px - cx) * -ny + (py - cy) * nx
-        ok = (tw > 0) & (np.abs(along) < half) & (pz > -h) & (pz < top - h)
-        closer = ok & (tw < t)
-        t = np.where(closer, tw, t)
-        inten = np.where(closer, rng.uniform(0.3, 0.9, dx.shape), inten)
-
-    for cx, cy, hx, hy, top in boxes:
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t1x, t2x = (cx - hx - ox) / dx, (cx + hx - ox) / dx
-            t1y, t2y = (cy - hy - oy) / dy, (cy + hy - oy) / dy
-            t1z, t2z = (-h - 0.0) / dz, (top - 0.0) / dz
-        tin = np.maximum.reduce([np.minimum(t1x, t2x), np.minimum(t1y, t2y),
-                                 np.minimum(t1z, t2z)])
-        tout = np.minimum.reduce([np.maximum(t1x, t2x), np.maximum(t1y, t2y),
-                                  np.maximum(t1z, t2z)])
-        ok = (tin > 0) & (tin < tout) & (tin < t)
-        t = np.where(ok, tin, t)
-        inten = np.where(ok, rng.uniform(0.1, 0.9, dx.shape), inten)
-
-    hit = t < 120.0
-    pts = np.stack([ox + t * dx, oy + t * dy, t * dz], 1)[hit]
-    pts += rng.normal(0.0, 0.02, pts.shape)
-    rows = [np.concatenate([pts, inten[hit, None]], 1)]
-
-    def disc(n, r_lo, r_hi, z_lo, z_hi, i_lo, i_hi):
-        r = rng.uniform(r_lo, r_hi, n)
-        th = rng.uniform(0, 2 * np.pi, n)
-        return np.stack([ox + r * np.cos(th), oy + r * np.sin(th),
-                         rng.uniform(z_lo, z_hi, n), rng.uniform(i_lo, i_hi, n)], 1)
-
-    rows.append(disc(300, 3.0, 9.0, -3.8, -2.8, 0.0, 0.15))   # reflected noise
-    rows.append(disc(300, 0.3, 2.6, -1.5, 0.5, 0.0, 1.0))     # inside min_range
-    rows.append(disc(300, 81.0, 110.0, -1.0, 6.0, 0.0, 1.0))  # beyond max_range
-    cloud = np.concatenate(rows, 0).astype(np.float32)
-    if len(cloud) > CAPACITY - 1024:
-        cloud = cloud[np.sort(rng.permutation(len(cloud))[: CAPACITY - 1024])]
-    return cloud
-
-
-def make_one_tile_scan(seed: int, per_patch: int = 64) -> np.ndarray:
-    """``per_patch`` (< 128) points in every patch of the default CZM, away
-    from the patch edges: a noisy ground plane, with a fifth of the points
-    raised up to 2 m. Every processed patch then owns exactly one tile."""
-    from patchworkpp_tpu_torch.params import CZMGeometry, Params
-
-    p = Params()
-    geom = CZMGeometry.create(p)
-    rng = np.random.default_rng([seed, 202])
-    rows = []
-    for k in range(p.num_zones):
-        nr, ns = p.num_rings_each_zone[k], p.num_sectors_each_zone[k]
-        ring = np.repeat(np.arange(nr), ns * per_patch)
-        sec = np.tile(np.repeat(np.arange(ns), per_patch), nr)
-        n = ring.size
-        r = geom.min_ranges[k] + geom.ring_sizes[k] * (ring + rng.uniform(0.15, 0.85, n))
-        th = geom.sector_sizes[k] * (sec + rng.uniform(0.15, 0.85, n))
-        z = -1.73 + 0.005 * r + rng.normal(0.0, 0.03, n)
-        z = np.where(rng.uniform(size=n) < 0.2, z + rng.uniform(0.2, 2.0, n), z)
-        rows.append(np.stack([r * np.cos(th), r * np.sin(th), z,
-                              rng.uniform(0.3, 0.9, n)], 1))
-    return np.concatenate(rows).astype(np.float32)
-
-
-def make_crowded_scan(seed: int, crowd: int = 40000) -> np.ndarray:
-    """make_one_tile_scan(seed) plus ``crowd`` points in one zone-0 patch
-    (ring 0, sector 1: r in [3.2, 7.0] m, theta in [0.45, 0.75] rad), three
-    quarters on a noisy ground plane, a quarter above it. That patch then
-    holds ~314 tiles, more than the fit kernel K1 keeps in shared memory
-    (ops/fit_kernel_grid.py CAP_TILES), so its rows are read from global
-    memory; every other processed patch holds one tile."""
-    rng = np.random.default_rng([seed, 101])
-    r = rng.uniform(3.2, 7.0, crowd)
-    th = rng.uniform(0.45, 0.75, crowd)
-    z = np.where(rng.uniform(size=crowd) < 0.75,
-                 -1.73 + rng.normal(0.0, 0.03, crowd), rng.uniform(-1.6, 0.5, crowd))
-    pts = np.stack([r * np.cos(th), r * np.sin(th), z, rng.uniform(0.3, 0.9, crowd)], 1)
-    return np.concatenate([make_one_tile_scan(seed), pts]).astype(np.float32)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def compare_tables(k, ref, params, label, exact=True):
@@ -226,7 +110,8 @@ def compare_tables(k, ref, params, label, exact=True):
     if not torch.equal(nan_k, nan_r):
         raise AssertionError(f"{label}: NaN positions differ")
     fin = ~nan_k
-    err = (k - ref).abs()[fin]
+    # infinities (a one-point fit's plane) count in the bitwise test only
+    err = (k - ref).abs()[torch.isfinite(k) & torch.isfinite(ref)]
     max_err = float(err.max()) if err.numel() else 0.0
     bitwise = bool(torch.equal(k[fin], ref[fin]))
     if exact and not bitwise:
@@ -265,74 +150,220 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def profile_frames(frame, state, xs_dev, npts, n: int = 5) -> dict:
-    """torch.profiler over n frames. Per frame: the host time of each
-    stage_* range (pipeline.py), its span on the device and the device time
-    of the kernels inside that span; the device's busy share of the window
-    (kernel and copy time over wall time); the count of device launches
-    and of device -> host copies; and the kernels with the most device
-    time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over n frames, reported per frame by
+    utils/roofline.py:frame_report: the host time of each stage_* range
+    (pipeline.py), its span on the device and the device time of the
+    kernels inside that span; the device's busy share of the window
+    (kernel and copy time over wall time); the count of device launches and
+    of device -> host copies; and the kernels with the most device time."""
+    from patchworkpp_tpu_torch.utils.roofline import frame_report, print_frame_report, trace
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
+        nonlocal state
         for k in range(n):
             state, _ = frame(state, xs_dev[k], npts[k])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
 
-    host, span, spans, kernels = {}, {}, [], []
-    for e in prof.events():
-        us = e.time_range.elapsed_us()
-        on_dev = e.device_type == DeviceType.CUDA
-        if e.name.startswith("stage_"):
-            if on_dev:
-                span[e.name] = span.get(e.name, 0.0) + us
-                spans.append((e.time_range.start, e.time_range.end, e.name))
-            else:
-                host[e.name] = host.get(e.name, 0.0) + us
-        elif on_dev and not getattr(e, "is_user_annotation", False):
-            kernels.append((e.time_range.start, us, e.name))
-    busy_in = {}
-    by_name = {}
-    for start, us, name in kernels:
-        for a, b, st in spans:
-            if a <= start < b:
-                busy_in[st] = busy_in.get(st, 0.0) + us
-                break
-        t, c = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + us, c + 1)
-    busy_us = sum(us for _, us, _ in kernels)
-    per = 1e3 * n  # us over n frames -> ms per frame
-    stages = {
-        k: {"host_ms": host.get(k, 0.0) / per, "device_span_ms": span.get(k, 0.0) / per,
-            "device_busy_ms": busy_in.get(k, 0.0) / per}
-        for k in sorted(set(host) | set(span))
+    events, wall_s = trace(run)
+    out = frame_report(events, wall_s, n)
+    print_frame_report(out)
+    return out
+
+
+def _equal_states(a, b, label):
+    """Two adaptive states equal bit for bit."""
+    sa, sb = a.to_numpy(), b.to_numpy()
+    for key in sa:
+        if not np.array_equal(sa[key], sb[key]):
+            raise AssertionError(f"{label}: state {key} differs")
+
+
+def _equal_labels(got, want, label):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g.ground_mask, w.ground_mask):
+            raise AssertionError(f"{label} frame {i}: "
+                                 f"{int((g.ground_mask != w.ground_mask).sum())} labels differ")
+
+
+def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
+                  timeout=120.0) -> dict:
+    """Phase 4b: the serving surface on the card (presets, the facade's
+    sequence and bucketed upload, the streaming server, the multi-stream
+    segmenter, the compat module, the bench) on ``device``. Raises on any
+    failure."""
+    import threading
+
+    import torch
+
+    from patchworkpp_tpu_torch import PatchworkPP
+    from patchworkpp_tpu_torch.compat import pypatchworkpp
+    from patchworkpp_tpu_torch.io.synthetic import make_scan
+    from patchworkpp_tpu_torch.models import patchwork_params, ros_launch_params
+    from patchworkpp_tpu_torch.ops import fit_kernel as fk
+    from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.serve import (
+        CloudMsg,
+        GroundSegmentationServer,
+        MultiStreamSegmenter,
+        ServerConfig,
+    )
+    from patchworkpp_tpu_torch.utils.roofline import trace
+
+    t_phase = time.perf_counter()
+    chain = scans if len(scans) >= SERVER_FRAMES else [
+        make_scan(seed, f) for f in range(SERVER_FRAMES)]
+    out = {}
+
+    # a. the presets: K1 bit for bit against its plain version, then three
+    # chained facade frames on the card equal to the CPU path's
+    for label, params in (("patchwork_params", patchwork_params()),
+                          ("ros_launch_params", ros_launch_params())):
+        check_k1(fit_inputs(chain[0], params), params, label)
+        gpu = PatchworkPP(params, capacity=CAPACITY, device=device)
+        cpu = PatchworkPP(params, capacity=CAPACITY, device="cpu")
+        res = [gpu.estimate_ground(s) for s in chain[:3]]
+        _equal_labels(res, [cpu.estimate_ground(s) for s in chain[:3]],
+                      f"{label}, card vs cpu")
+        print(f"{label}: 3 chained frames, labels equal to the cpu path, ground "
+              f"{[int(r.ground_mask.sum()) for r in res]}")
+
+    # b. the facade: one sequence call == the frame loop, one device->host
+    # copy for the run; the bucketed upload == a tight capacity
+    seq_m = PatchworkPP(capacity=CAPACITY, device=device)
+    loop_m = PatchworkPP(capacity=CAPACITY, device=device)
+    seq_res = []
+    events, _ = trace(lambda: seq_res.extend(seq_m.estimate_ground_sequence(chain[:6])))
+    dtoh = sum(1 for e in events if e.on_device and "DtoH" in e.name)
+    loop_res = [loop_m.estimate_ground(s) for s in chain[:6]]
+    _equal_labels(seq_res, loop_res, "estimate_ground_sequence vs estimate_ground")
+    _equal_states(seq_m.state, loop_m.state, "estimate_ground_sequence vs estimate_ground")
+    if dtoh != (device == "cuda"):  # one copy on the card (none on the CPU)
+        raise AssertionError(f"estimate_ground_sequence of 6 scans made {dtoh} "
+                             "device->host copies, expected 1")
+    sparse = make_scan(seed)[::4]
+    wide = PatchworkPP(capacity=CAPACITY, device=device).estimate_ground(sparse)
+    tight = PatchworkPP(capacity=32768, device=device).estimate_ground(sparse)
+    _equal_labels([wide], [tight], f"{len(sparse)} points at capacity {CAPACITY} vs 32768")
+    print(f"facade: sequence of 6 == frame loop (labels, state), {dtoh} device->host "
+          f"copy; {len(sparse)}-point scan bucketed at {CAPACITY} == capacity 32768")
+
+    # c. the server, closed loop: one message in flight, each answered in time
+    srv = GroundSegmentationServer(config=ServerConfig(capacity=CAPACITY), device=device)
+    got, lat, answered = [], [], threading.Event()
+
+    def on_result(r):
+        lat.append(time.perf_counter() - r.msg.stamp)
+        got.append(r.result)
+        answered.set()
+
+    srv.on_result(on_result)
+
+    def wait_answer(server, what):
+        t_end = time.perf_counter() + timeout
+        while not answered.wait(0.05):
+            if not server.worker_alive:
+                raise RuntimeError(f"{what}: server worker died: {server.worker_error!r}")
+            if time.perf_counter() > t_end:
+                raise RuntimeError(f"{what}: no answer within {timeout} s")
+
+    fkg.fused_fit_grid.launches = 0
+    fk.fused_fit.launches = 0
+    with srv:
+        for i, s in enumerate(chain[:SERVER_FRAMES]):
+            answered.clear()
+            srv.publish(CloudMsg(points=s, stamp=time.perf_counter()))
+            wait_answer(srv, f"closed loop message {i}")
+    counts = {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches}
+    want_k1 = SERVER_FRAMES if device == "cuda" else 0  # the CPU runs the plain fit
+    if counts != {"fit_grid": want_k1, "fit_onehot": 0}:
+        raise AssertionError(f"server: launches {counts} in {SERVER_FRAMES} frames, "
+                             f"expected fit_grid {want_k1} and fit_onehot 0")
+    ref = PatchworkPP(capacity=CAPACITY, device=device)
+    _equal_labels(got, [ref.estimate_ground(s) for s in chain[:SERVER_FRAMES]],
+                  "server vs facade")
+    _equal_states(srv._model.state, ref.state, "server vs facade")
+    lat_ms = np.asarray(lat) * 1e3
+    out["server"] = {
+        "frames": SERVER_FRAMES, "launches": counts,
+        "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+        "latency_ms_p95": float(np.percentile(lat_ms, 95)),
+        "latency_ms_max": float(lat_ms.max()),
+        "latency_ms_each": lat_ms.tolist(),
+        "timing_report": srv.timing_report(),
     }
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    out = {
-        "frames": n, "wall_ms_per_frame": wall_us / per,
-        "device_busy_ms_per_frame": busy_us / per,
-        "device_busy_share": busy_us / wall_us,
-        "device_launches_per_frame": len(kernels) / n,
-        "dtoh_copies_per_frame": sum("DtoH" in k for _, _, k in kernels) / n,
-        "stages": stages,
-        "top_kernels": [{"name": k, "device_ms_per_frame": t / per,
-                         "launches_per_frame": c / n} for k, (t, c) in top],
-    }
-    print(f"profile ({n} frames, profiler on): wall {out['wall_ms_per_frame']:.3f} ms/frame, "
-          f"device busy {out['device_busy_ms_per_frame']:.3f} ms/frame "
-          f"(share {out['device_busy_share']:.3f}), "
-          f"{out['device_launches_per_frame']:g} device launches and "
-          f"{out['dtoh_copies_per_frame']:g} device->host copies per frame")
-    for k, v in stages.items():
-        print(f"  {k}: host {v['host_ms']:.3f} ms, device span {v['device_span_ms']:.3f} ms, "
-              f"device busy {v['device_busy_ms']:.3f} ms per frame")
-    for t in out["top_kernels"]:
-        print(f"  {t['device_ms_per_frame']:.4f} ms/frame  x{t['launches_per_frame']:g}  "
-              f"{t['name'][:90]}")
+    print(f"server closed loop: {SERVER_FRAMES} frames at capacity {CAPACITY}, labels "
+          f"and state equal to the facade's, launches {counts}; service latency "
+          f"p50 {out['server']['latency_ms_p50']:.3f} ms, p95 "
+          f"{out['server']['latency_ms_p95']:.3f} ms, max "
+          f"{out['server']['latency_ms_max']:.3f} ms; {srv.timing_report()}")
+
+    # c'. a backlog through the batching path (queue_depth 8, batch_max 2)
+    back = GroundSegmentationServer(
+        config=ServerConfig(capacity=CAPACITY, queue_depth=8, batch_max=2), device=device)
+    batches = []
+    seq_call = back._model.estimate_ground_sequence
+
+    def counted(clouds):
+        batches.append(len(clouds))
+        return seq_call(clouds)
+
+    back._model.estimate_ground_sequence = counted
+    back_res = []
+    back.on_result(lambda r: (back_res.append(r.result),
+                              answered.set() if len(back_res) == 6 else None))
+    answered.clear()
+    with back:
+        for s in chain[:6]:
+            back.publish(CloudMsg(points=s, stamp=time.perf_counter()))
+        wait_answer(back, "backlog")
+    ref = PatchworkPP(capacity=CAPACITY, device=device)
+    _equal_labels(back_res, [ref.estimate_ground(s) for s in chain[:6]], "backlog vs facade")
+    if back.sensor_height != ref.sensor_height:
+        raise AssertionError(f"backlog sensor_height {back.sensor_height} != {ref.sensor_height}")
+    out["backlog_sequence_calls"] = len(batches)
+    print(f"server backlog: 6 scans, {len(batches)} sequence calls of 2, labels and "
+          "sensor_height equal to the per-frame facade's")
+
+    # d. two streams through one MultiStreamSegmenter == two facades
+    ms = MultiStreamSegmenter(capacity=CAPACITY, device=device)
+    other = [make_scan(seed + 1, f) for f in range(3)]
+    fa = PatchworkPP(capacity=CAPACITY, device=device)
+    fb = PatchworkPP(capacity=CAPACITY, device=device)
+    for i in range(3):
+        _equal_labels([ms.segment("a", chain[i]), ms.segment("b", other[i])],
+                      [fa.estimate_ground(chain[i]), fb.estimate_ground(other[i])],
+                      f"multi-stream step {i}")
+    if (ms.sensor_height("a"), ms.sensor_height("b")) != (fa.sensor_height, fb.sensor_height):
+        raise AssertionError("multi-stream sensor heights differ from the facades'")
+    print("multi-stream: 2 streams x 3 interleaved frames equal to two facades")
+
+    # e. the compat module's getters == the facade's result
+    eng = pypatchworkpp.patchworkpp(pypatchworkpp.Parameters(), device=device)
+    eng.estimateGround(chain[0])
+    r = PatchworkPP(device=device).estimate_ground(chain[0])
+    for got_v, want in ((eng.getGroundIndices(), r.ground_indices),
+                        (eng.getNongroundIndices(), r.nonground_indices),
+                        (eng.getCenters(), r.centers), (eng.getNormals(), r.normals),
+                        (eng.getGround(), chain[0][r.ground_indices, :3])):
+        if not np.array_equal(got_v, want):
+            raise AssertionError("compat getters differ from the facade's result")
+    print(f"compat: getters equal to the facade's result ({len(r.ground_indices)} ground)")
+
+    # f. the bench, in its own process, at a short setting
+    cmd = [sys.executable, "-m", "patchworkpp_tpu_torch.cli.bench",
+           "--epochs", "24", "--groups", "3", "--seed", str(seed), "--device", device]
+    proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (line["metric"].endswith("_seq_scans_per_s") and np.isfinite(line["value"])
+            and line["value"] > 0):
+        raise AssertionError(f"bench line malformed: {line}")
+    out["bench"] = line
+    print(f"bench ({' '.join(cmd[2:])}): {line['metric']} {line['value']:.3f} scans/s "
+          f"(min {line['min']:.3f}, max {line['max']:.3f}; {line['groups']} groups, "
+          f"{line['frames_total']} frames, {line['frames_per_dispatch']} a dispatch)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"serving phase: {out['wall_s']:.1f} s")
     return out
 
 
@@ -354,6 +385,12 @@ def main() -> int:
     sys.path.insert(0, here)
     import patchworkpp_tpu_torch
     from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
+    from patchworkpp_tpu_torch.cli import workload
+    from patchworkpp_tpu_torch.io.synthetic import (
+        make_crowded_scan,
+        make_one_tile_scan,
+        make_scan,
+    )
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
     from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
@@ -365,7 +402,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = card_line()
+    card = workload.card(dev)
     name = torch.cuda.get_device_name(0)
 
     # ---- 1. card and build (one nvcc per source, started together)
@@ -509,6 +546,9 @@ def main() -> int:
             print(f"labels differing {names[a]} vs {names[b]} on the card, "
                   f"frames 0..{n - 1}: {diff}")
 
+    # ---- 4b. the serving surface on the card
+    serving = serving_phase(args.seed, scans, fit_inputs, check_k1, here)
+
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
 
@@ -608,7 +648,7 @@ def main() -> int:
         "k2_crowded_ms": k2_crowd_ms,
         "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
         "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
-        "k1_k2_max_abs_diff": k1k2_err, **kernels,
+        "k1_k2_max_abs_diff": k1k2_err, "serving": serving, **kernels,
     }
     if args.profile:
         record["profile"] = {}

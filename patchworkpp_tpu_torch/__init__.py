@@ -7,7 +7,10 @@ JAX package ``patchworkpp_tpu`` is the reference it is tested against; this
 package imports none of it.
 
 Public API: :class:`Params`, :class:`PatchworkPP` (runs on "cuda" unless
-given ``device="cpu"``), :func:`init_state`, :class:`AdaptiveState`.
+given ``device="cpu"``), :func:`init_state`, :class:`AdaptiveState`; the
+presets in ``models``, the streaming server and multi-stream segmenter in
+``serve``, the ``pypatchworkpp`` surface in ``compat``, and the bench and
+the other command-line tools in ``cli``.
 """
 
 from patchworkpp_tpu_torch.models import PatchworkPP

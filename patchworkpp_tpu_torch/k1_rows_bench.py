@@ -1,7 +1,8 @@
 """Times the fit kernel K1 (csrc/fit_grid.cu) as built against the same
 kernel with every patch staged into shared memory chunk by chunk at every
 walk (the path csrc/fit_program.cuh takes only for patches over kCapTiles),
-on chip_smoke.py's main scan, one-tile and crowded-patch clouds.
+on the synthetic main scan, one-tile and crowded-patch clouds
+(io/synthetic.py).
 
 Both builds are first held bit for bit against the plain version; then each
 is timed with chip_smoke.cuda_ms (device time, calls queued behind a device
@@ -13,13 +14,14 @@ Usage, from the repo root: python3 -m patchworkpp_tpu_torch.k1_rows_bench
 from __future__ import annotations
 
 import shutil
-import subprocess
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
 from patchworkpp_tpu_torch import Params, init_state
+from patchworkpp_tpu_torch.cli.workload import card
+from patchworkpp_tpu_torch.io import synthetic
 from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
 from patchworkpp_tpu_torch.ops import nvcc
 from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
@@ -44,10 +46,8 @@ def build_global_only():
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("k1_rows_bench needs a CUDA card")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip())
     dev, p = torch.device("cuda"), Params()
+    print(card(dev))
     libs = {"A": fkg.build(), "B": build_global_only()}
     built = fkg.build
 
@@ -58,10 +58,10 @@ def main() -> int:
         finally:
             fkg.build = built
 
-    for name, cloud in (("main scan", cs.make_scan(0)),
-                        ("one-tile", cs.make_one_tile_scan(0)),
-                        ("crowded", cs.make_crowded_scan(0))):
-        x = torch.zeros((cs.CAPACITY, 4), device=dev)
+    for name, cloud in (("main scan", synthetic.make_scan(0)),
+                        ("one-tile", synthetic.make_one_tile_scan(0)),
+                        ("crowded", synthetic.make_crowded_scan(0))):
+        x = torch.zeros((synthetic.CAPACITY, 4), device=dev)
         x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
         fi = make_frame_fn(p, device=dev).fit_inputs(init_state(p, dev), x, len(cloud))
         a = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,

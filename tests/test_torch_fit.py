@@ -11,11 +11,11 @@ but the one-hot dot that adds a patch's tiles in the JAX engine has its own
 order, and a clustered pair's normal its own 1/sqrt
 (tests/test_torch_eigen.py). The tolerance is atol 5e-5 + rtol 5e-5, under
 a tenth of the 0.125 m th_dist margin any label decision reads, and the
-worst difference is printed. On chip_smoke.py's 64-beam scan the entries
+worst difference is printed. On the synthetic 64-beam scan the entries
 beyond 5e-5 are counted (plane offsets d of clustered pairs, 30 m from the
 sensor) and held under a bound.
 
-The crowded-patch and one-tile clouds of ``chip_smoke.py`` (capacity
+The crowded-patch and one-tile clouds of ``io/synthetic.py`` (capacity
 131072) drive the kernels' two row sources on the card (a patch longer than
 their shared-memory cap is staged chunk by chunk); here their plain fits are
 held against JAX's under the same tolerance. Two binding tests check what no CPU
@@ -45,7 +45,12 @@ from patchworkpp_tpu.ops.tiled_fit import out_layout as j_out_layout
 from patchworkpp_tpu.ops.tiled_fit import tiled_fit as j_tiled_fit
 from patchworkpp_tpu.params import Params as JParams
 from patchworkpp_tpu.pipeline import FrameComm
-from chip_smoke import CAPACITY, make_crowded_scan, make_one_tile_scan, make_scan
+from patchworkpp_tpu_torch.io.synthetic import (
+    CAPACITY,
+    make_crowded_scan,
+    make_one_tile_scan,
+    make_scan,
+)
 from patchworkpp_tpu_torch import CZMGeometry, Params, init_state
 from patchworkpp_tpu_torch.ops import fit_kernel as fk
 from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
@@ -230,7 +235,7 @@ def test_plain_fit_num_iter4_matches_jax_tiled_fit(jax_tiled_fit, seed):
 
 @pytest.mark.parametrize("cloud", ["crowded", "one_tile"])
 def test_plain_fit_matches_jax_on_kernel_branch_clouds(jax_tiled_fit, cloud):
-    """chip_smoke.py's crowded-patch cloud (one patch longer than the
+    """io/synthetic.py's crowded-patch cloud (one patch longer than the
     kernel's shared-memory cap) and one-tile cloud (every processed patch
     one tile), at capacity 131072."""
     p = Params()
@@ -245,7 +250,7 @@ def test_plain_fit_matches_jax_on_kernel_branch_clouds(jax_tiled_fit, cloud):
 
 
 def test_plain_fit_on_64_beam_scan_matches_jax(jax_tiled_fit):
-    """chip_smoke.py's 64-beam scan at capacity 131072: integer columns
+    """io/synthetic.py's 64-beam scan at capacity 131072: integer columns
     equal, and few float entries beyond 5e-5. Those left are clustered
     pairs' normals (their 1/sqrt, tests/test_torch_eigen.py) and the plane
     offsets d they move, 30 m from the sensor; 116 of them on an AVX-512

@@ -1,6 +1,6 @@
 """The port's frame (tiled engine, CPU path) vs the JAX tiled engine on
 seeded synthetic clouds (tests/test_fuzz_parity.py:synth_cloud) at capacity
-8192, on three chained frames of chip_smoke.py's 64-beam scan at capacity
+8192, on three chained frames of io/synthetic.py's 64-beam scan at capacity
 131072, and the port facade's contract.
 
 Labels must be equal, fresh and through adapted frames. Adaptive-state
@@ -34,7 +34,7 @@ from patchworkpp_tpu.pipeline import make_frame_fn as j_make_frame_fn
 from patchworkpp_tpu_torch import AdaptiveState, CZMGeometry, Params, PatchworkPP, init_state
 from patchworkpp_tpu_torch.models.patchworkpp import _round_capacity
 from patchworkpp_tpu_torch.ops.binning import bin_points
-from chip_smoke import CAPACITY, make_scan
+from patchworkpp_tpu_torch.io.synthetic import CAPACITY, make_scan
 from test_fuzz_parity import CAP, synth_cloud
 
 STATE_ATOL = {"sensor_height": 1e-5, "elevation_thr": 1e-5, "elev_buf": 1e-5,
@@ -104,7 +104,7 @@ def test_labels_match_jax_tiled_engine(jax_frame, torch_frame, seed):
 
 
 def test_64_beam_chain_labels_match_jax(jax_frame, torch_frame):
-    """chip_smoke.py's 64-beam scan (~120k points), three frames chained at
+    """io/synthetic.py's 64-beam scan (~120k points), three frames chained at
     capacity 131072. Its frame 2 holds a 17-point, one-tile patch whose
     normal lies 7.6e-4 above the 0.707 uprightness threshold in the JAX
     engine: the port labels it alike only with the JAX engine's tile-sum

@@ -44,11 +44,29 @@ def test_port_has_the_expected_files():
         "patchworkpp_tpu_torch/ops/moments.py",
         "patchworkpp_tpu_torch/ops/onehot.py",
         "patchworkpp_tpu_torch/models/patchworkpp.py",
+        "patchworkpp_tpu_torch/models/presets.py",
+        "patchworkpp_tpu_torch/utils/profiling.py",
+        "patchworkpp_tpu_torch/utils/roofline.py",
+        "patchworkpp_tpu_torch/io/kitti.py",
+        "patchworkpp_tpu_torch/io/synthetic.py",
+        "patchworkpp_tpu_torch/compat/pypatchworkpp.py",
+        "patchworkpp_tpu_torch/serve/server.py",
+        "patchworkpp_tpu_torch/serve/multi_stream.py",
+        "patchworkpp_tpu_torch/serve/ros2_bridge.py",
+        "patchworkpp_tpu_torch/serve/launch.py",
+        "patchworkpp_tpu_torch/cli/workload.py",
+        "patchworkpp_tpu_torch/cli/bench.py",
+        "patchworkpp_tpu_torch/cli/stream_bench.py",
+        "patchworkpp_tpu_torch/cli/serve_bench.py",
+        "patchworkpp_tpu_torch/cli/soak.py",
+        "patchworkpp_tpu_torch/cli/demo_sequential.py",
+        "patchworkpp_tpu_torch/cli/demo_multi_stream.py",
         "chip_smoke.py",
     ):
         assert want in names
     for src in ("fit_grid.cu", "fit_onehot.cu", "fit_program.cuh", "fit_math.cuh"):
         assert (ROOT / "patchworkpp_tpu_torch" / "csrc" / src).exists()
+    assert (ROOT / "patchworkpp_tpu_torch" / "serve" / "rviz" / "patchworkpp.rviz").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -33,7 +33,7 @@ from patchworkpp_tpu_torch.ops import fit_kernel as fk
 from patchworkpp_tpu_torch.ops.fit_kernel import OUT_COLS, fused_fit_reference
 from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
 from patchworkpp_tpu_torch.pipeline import build_static_tables, make_frame_fn
-from chip_smoke import CAPACITY, make_crowded_scan, make_one_tile_scan
+from patchworkpp_tpu_torch.io.synthetic import CAPACITY, make_crowded_scan, make_one_tile_scan
 from test_torch_fit import (  # noqa: F401
     PAD_COL,
     _cloud_fit_inputs,
@@ -86,7 +86,7 @@ def test_plain_k2_integer_columns_equal_k1(seed):
 
 @pytest.mark.parametrize("cloud", ["crowded", "one_tile"])
 def test_plain_k2_integer_columns_equal_k1_on_kernel_branch_clouds(cloud):
-    """chip_smoke.py's crowded-patch cloud (one patch staged chunk by chunk
+    """io/synthetic.py's crowded-patch cloud (one patch staged chunk by chunk
     in the kernels) and one-tile cloud, at capacity 131072: K2's and K1's
     plain versions agree on every integer column."""
     p = Params()
