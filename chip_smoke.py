@@ -42,6 +42,20 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    streams of serve/multi_stream.py equal to two facades; the compat
    module's getters equal to the facade's result; and cli/bench.py run in
    its own process at a short setting, its JSON line parsed and printed;
+4c. references: six synthetic scans make_scan(0, 0..5) at full width are
+   written as .bin files; golden-format npz files (fresh_<name>, seq_<name>)
+   are built from the CPU path, tiled and unfused; scripts/gpu_parity.py runs
+   in its own process on the card over the 12 configurations (modes None
+   and onehot against the tiled npz, False against the unfused one: 36 PASS
+   lines, exit 0); the port's NumPy oracle (oracle/, on the host, one
+   process per fresh scan and one for the chain) labels the same 12
+   configurations, and the card's tiled and onehot labels must equal the
+   oracle's on every configuration outside ENGINE_VS_ORACLE, and differ
+   from it exactly where the CPU path does, point for point, on those in
+   it; cli/eval_semantickitti.py scores the card against the tiled npz at
+   --batch 1 and 2 (precision = recall = f1 = 1); cli/stream_bench.py
+   streams the files through the native loader and the numpy one, with
+   the same frames and first-epoch labels, their scans/s printed;
 5. time both kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
    after warm-up; print K1's time per walk of
@@ -248,11 +262,12 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
 
     # c. the server, closed loop: one message in flight, each answered in time
     srv = GroundSegmentationServer(config=ServerConfig(capacity=CAPACITY), device=device)
-    got, lat, answered = [], [], threading.Event()
+    got, lat, errors, answered = [], [], [], threading.Event()
 
     def on_result(r):
         lat.append(time.perf_counter() - r.msg.stamp)
         got.append(r.result)
+        errors.append(r.error)
         answered.set()
 
     srv.on_result(on_result)
@@ -264,6 +279,9 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
                 raise RuntimeError(f"{what}: server worker died: {server.worker_error!r}")
             if time.perf_counter() > t_end:
                 raise RuntimeError(f"{what}: no answer within {timeout} s")
+        failed = [e for e in errors if e is not None]
+        if failed:  # a build or launch error on the first frame fails at once
+            raise RuntimeError(f"{what}: a scan raised in the server: {failed[0]!r}")
 
     fkg.fused_fit_grid.launches = 0
     fk.fused_fit.launches = 0
@@ -308,8 +326,8 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
 
     back._model.estimate_ground_sequence = counted
     back_res = []
-    back.on_result(lambda r: (back_res.append(r.result),
-                              answered.set() if len(back_res) == 6 else None))
+    back.on_result(lambda r: (back_res.append(r.result), errors.append(r.error),
+                              answered.set() if len(back_res) == 6 or r.error else None))
     answered.clear()
     with back:
         for s in chain[:6]:
@@ -364,6 +382,215 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
           f"{line['frames_total']} frames, {line['frames_per_dispatch']} a dispatch)")
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"serving phase: {out['wall_s']:.1f} s")
+    return out
+
+
+# The configurations of make_scan(0, 0..5) (fresh_<f> per scan, seq_<f>
+# chained) where the engines' labels differ from the oracle's, and by how
+# many points, on the CPU; tests/test_torch_oracle.py holds the JAX engines,
+# the JAX oracle and the port's CPU path to the same table. The engines
+# equal the oracle on the other seven.
+ENGINE_VS_ORACLE = {"fresh_000002": 17, "fresh_000003": 1, "fresh_000005": 16,
+                    "seq_000002": 17, "seq_000005": 16}
+REF_SCANS = [f"{i:06d}" for i in range(6)]
+
+
+def _oracle_worker(paths, chain):
+    """The port's NumPy oracle over ``paths`` (one fresh oracle per scan, or
+    one chained through them): [(ground mask, patch id per point)], and the
+    seconds per frame. Runs in its own process, on one CPU thread."""
+    import torch
+
+    from patchworkpp_tpu_torch.io import read_bin
+    from patchworkpp_tpu_torch.oracle import NumpyPatchworkpp
+
+    torch.set_num_threads(1)
+    out, orc = [], NumpyPatchworkpp()
+    t0 = time.perf_counter()
+    for path in paths:
+        if not chain:
+            orc = NumpyPatchworkpp()
+        out.append((orc.estimate_ground(read_bin(path)), orc.last_patch_id))
+    return out, (time.perf_counter() - t0) / len(paths)
+
+
+def references_phase(here, card, device="cuda") -> dict:
+    """Phase 4c: the GPU parity script, the NumPy oracle, the eval CLI and
+    the native loader on ``device``, over six synthetic scans written to a
+    temporary directory. Raises on any failure."""
+    import contextlib
+    import io
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from patchworkpp_tpu_torch import PatchworkPP
+    from patchworkpp_tpu_torch.cli import eval_semantickitti, stream_bench
+    from patchworkpp_tpu_torch.io.synthetic import make_scan
+    from patchworkpp_tpu_torch.ops import fit_kernel as fk
+    from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    per_frame = int(dev.type == "cuda")  # the CPU runs the plain fit
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="ppk_references_")
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 3))  # the oracle takes three cores
+    try:
+        # 1. the scans (seed 0: ENGINE_VS_ORACLE is that seed's table)
+        scans = [make_scan(0, f) for f in range(len(REF_SCANS))]
+        paths = [os.path.join(tmp, f"{n}.bin") for n in REF_SCANS]
+        for s, path in zip(scans, paths):
+            s.tofile(path)
+        # the oracle on the host, in three processes: the chain, and the
+        # fresh scans in two halves (~9 s a frame on one host thread)
+        chain_fut = pool.submit(_oracle_worker, paths, True)
+        fresh_futs = [pool.submit(_oracle_worker, paths[:3], False),
+                      pool.submit(_oracle_worker, paths[3:], False)]
+
+        def configs(model):
+            """{key: ground mask} over the 12 configurations."""
+            masks = {}
+            for variant in ("fresh", "seq"):
+                model.reset()
+                for name, s in zip(REF_SCANS, scans):
+                    if variant == "fresh":
+                        model.reset()
+                    masks[f"{variant}_{name}"] = model.estimate_ground(s).ground_mask
+            return masks
+
+        # 2. golden-format npz files from the CPU path
+        cpu = {}
+        npz = {}
+        for label, fused in (("tiled", None), ("unfused", False)):
+            cpu[label] = configs(PatchworkPP(capacity=CAPACITY, device="cpu", fused=fused))
+            npz[label] = os.path.join(tmp, f"golden_{label}.npz")
+            np.savez(npz[label], **{k: np.flatnonzero(m).astype(np.int32)
+                                    for k, m in cpu[label].items()})
+        print(f"references: 6 scans of {len(scans[0])}+ points in {tmp}; npz from the "
+              f"cpu path: tiled, unfused ({time.perf_counter() - t_phase:.1f} s)")
+
+        # 3. scripts/gpu_parity.py on the card, in its own process
+        passes = 0
+        for modes, label in ((["None", "onehot"], "tiled"), (["False"], "unfused")):
+            cmd = [sys.executable, os.path.join(here, "scripts", "gpu_parity.py"),
+                   "--device", device, "--scan-dir", tmp, "--golden", npz[label],
+                   "--capacity", str(CAPACITY), "--modes", *modes]
+            proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                                  timeout=600)
+            lines = proc.stdout.splitlines()
+            verdicts = [ln for ln in lines if ln.startswith("[fused=") and ": " in ln
+                        and ("PASS" in ln or "FAIL" in ln)]
+            bad = [ln for ln in verdicts if "PASS (0 mismatched" not in ln]
+            if (proc.returncode != 0 or bad or len(verdicts) != 12 * len(modes)
+                    or lines[-1:] != ["PARITY: OK"]):
+                raise AssertionError(
+                    f"gpu_parity --modes {' '.join(modes)} exited {proc.returncode}: "
+                    f"{bad or lines[-3:]} {proc.stderr[-2000:]}")
+            passes += len(verdicts)
+            print(f"gpu_parity --modes {' '.join(modes)} vs the {label} npz: "
+                  f"{len(verdicts)} PASS, PARITY: OK")
+        out["gpu_parity_pass_lines"] = passes
+
+        # 4. the card's tiled and onehot labels, launches counted
+        card_masks = {}
+        for label, fused, kernel in (("tiled", None, "fit_grid"),
+                                     ("onehot", "onehot", "fit_onehot")):
+            fkg.fused_fit_grid.launches = 0
+            fk.fused_fit.launches = 0
+            card_masks[label] = configs(PatchworkPP(capacity=CAPACITY, device=device,
+                                                    fused=fused))
+            counts = {"fit_grid": fkg.fused_fit_grid.launches,
+                      "fit_onehot": fk.fused_fit.launches}
+            if counts != {k: 12 * per_frame if k == kernel else 0 for k in counts}:
+                raise AssertionError(f"references, {label}: launches {counts} in 12 frames")
+
+        # 5. the eval CLI on the card against the tiled npz
+        fkg.fused_fit_grid.launches = 0
+        for batch in (1, 2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                eval_semantickitti.main(["--device", device, "--scan-dir", tmp,
+                                         "--golden", npz["tiled"], "--json",
+                                         "--capacity", str(CAPACITY),
+                                         "--batch", str(batch)])
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            if not (line["frames"] == 6 and line["precision"] == line["recall"]
+                    == line["f1"] == 1.0):
+                raise AssertionError(f"eval --batch {batch}: {line}")
+            out[f"eval_batch{batch}"] = line
+            print(f"eval_semantickitti --batch {batch}: precision {line['precision']} "
+                  f"recall {line['recall']} f1 {line['f1']}, {line['scans_per_s']:.1f} "
+                  "scans/s")
+        if fkg.fused_fit_grid.launches != 12 * per_frame:
+            raise AssertionError(f"eval: fit_grid launched {fkg.fused_fit_grid.launches} "
+                                 "times in 12 frames")
+
+        # 6. the oracle: card vs oracle, and the CPU path's difference kept
+        t_wait = time.perf_counter()
+        oracle = {}
+        fresh, fresh_s = [], []
+        for fut in fresh_futs:
+            res, sec = fut.result()
+            fresh += res
+            fresh_s.append(sec)
+        chain, chain_s = chain_fut.result()
+        for name, f_res, c_res in zip(REF_SCANS, fresh, chain):
+            oracle[f"fresh_{name}"] = f_res
+            oracle[f"seq_{name}"] = c_res
+        table = {}
+        for key, (want, pid) in oracle.items():
+            d_cpu = cpu["tiled"][key] != want
+            for label, masks in card_masks.items():
+                d_card = masks[key] != want
+                if key not in ENGINE_VS_ORACLE and d_card.any():
+                    raise AssertionError(f"{key}: card {label} differs from the oracle on "
+                                         f"{int(d_card.sum())} points")
+                if not np.array_equal(d_card, d_cpu):
+                    raise AssertionError(f"{key}: card {label} - oracle is not cpu - oracle "
+                                         f"({int(d_card.sum())} vs {int(d_cpu.sum())} points)")
+            table[key] = int(d_cpu.sum())
+            if d_cpu.any():
+                print(f"  {key}: card and cpu differ from the oracle on the same "
+                      f"{int(d_cpu.sum())} points, patches {sorted(set(pid[d_cpu].tolist()))}")
+        out["engine_vs_oracle"] = table
+        out["oracle_ms_per_frame"] = {"fresh": [1e3 * x for x in fresh_s],
+                                      "chain": 1e3 * chain_s}
+        print(f"oracle: 12 configurations; card == oracle on "
+              f"{sum(v == 0 for v in table.values())}, card - oracle == cpu - oracle "
+              f"elsewhere; oracle {np.mean(fresh_s) * 1e3:.0f} ms a fresh frame, "
+              f"{chain_s * 1e3:.0f} ms a chained frame (one host thread each, "
+              f"3 processes), waited {time.perf_counter() - t_wait:.1f} s")
+
+        # 7. stream_bench: the native loader against the numpy one (after
+        # the oracle's processes, which would share the host)
+        rates, first = {}, {}
+        for loader in ("numpy", "native"):
+            fkg.fused_fit_grid.launches = 0
+            frames, secs, first[loader] = stream_bench.run(
+                dev, CAPACITY, 10, loader, scans=scans, paths=paths)
+            if frames != 60 or fkg.fused_fit_grid.launches < frames * per_frame:
+                raise AssertionError(f"stream_bench {loader}: {frames} frames, expected 60, "
+                                     f"fit_grid launched {fkg.fused_fit_grid.launches} times")
+            rates[loader] = frames / secs
+        for i, (a, b) in enumerate(zip(first["native"], first["numpy"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"stream_bench: native loader's labels differ on scan {i}")
+        out["stream_scans_per_s"] = rates
+        print(f"stream_bench, 60 frames each: numpy loader {rates['numpy']:.3f} scans/s, "
+              f"native loader {rates['native']:.3f} scans/s, first-epoch labels equal "
+              f"({card})")
+    finally:
+        torch.set_num_threads(threads)
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"references phase: {out['wall_s']:.1f} s")
     return out
 
 
@@ -549,6 +776,9 @@ def main() -> int:
     # ---- 4b. the serving surface on the card
     serving = serving_phase(args.seed, scans, fit_inputs, check_k1, here)
 
+    # ---- 4c. references: the parity script, the oracle, eval, native loader
+    references = references_phase(here, card)
+
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
 
@@ -648,7 +878,8 @@ def main() -> int:
         "k2_crowded_ms": k2_crowd_ms,
         "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
         "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
-        "k1_k2_max_abs_diff": k1k2_err, "serving": serving, **kernels,
+        "k1_k2_max_abs_diff": k1k2_err, "serving": serving,
+        "references": references, **kernels,
     }
     if args.profile:
         record["profile"] = {}

@@ -9,8 +9,9 @@ package imports none of it.
 Public API: :class:`Params`, :class:`PatchworkPP` (runs on "cuda" unless
 given ``device="cpu"``), :func:`init_state`, :class:`AdaptiveState`; the
 presets in ``models``, the streaming server and multi-stream segmenter in
-``serve``, the ``pypatchworkpp`` surface in ``compat``, and the bench and
-the other command-line tools in ``cli``.
+``serve``, the ``pypatchworkpp`` surface in ``compat``, the readers and the
+native loader in ``io``, the bench and the other command-line tools in
+``cli``, and the NumPy oracle (a CPU test reference) in ``oracle``.
 """
 
 from patchworkpp_tpu_torch.models import PatchworkPP

@@ -269,7 +269,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"--chunks must be >= 1, got {args.chunks}")
     if args.chunks > 1:
         raise SystemExit("--chunks > 1: the chunked frame is not ported yet "
-                         "(ROADMAP queue 1, item 11)")
+                         "(ROADMAP queue 1, item 13)")
     if args.streams < 1:
         raise SystemExit(f"--streams must be >= 1, got {args.streams}")
     dev = resolve_device(args.device)

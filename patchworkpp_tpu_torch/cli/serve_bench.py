@@ -56,10 +56,11 @@ def closed_loop(scans, frames, device, capacity, timeout=600.0):
     srv = GroundSegmentationServer(
         config=ServerConfig(capacity=capacity, batch_max=1), device=device)
     done = threading.Event()
-    lats = []
+    lats, errors = [], []
 
     def cb(res):
         lats.append(time.perf_counter() - res.msg.stamp)
+        errors.append(res.error)
         done.set()
 
     srv.on_result(cb)
@@ -71,6 +72,8 @@ def closed_loop(scans, frames, device, capacity, timeout=600.0):
             if not done.wait(timeout=timeout):
                 raise SystemExit(f"closed_loop: no callback for message {i} within "
                                  f"{timeout} s (worker error: {srv.worker_error!r})")
+            if errors[-1] is not None:
+                raise SystemExit(f"closed_loop: message {i} raised {errors[-1]!r}")
             if i == 1:  # snapshot after the build-bearing messages
                 base = (srv.timer.totals.get("wait", 0.0),
                         srv.timer.totals.get("infer", 0.0), srv.timer.frames)
@@ -96,14 +99,15 @@ def overload(scans, frames, rate_hz, batch_max, device, capacity, drain_s=120.0)
     """Phase B: open-loop feeder at rate_hz; e2e latency + drop rate."""
     from patchworkpp_tpu_torch.serve import CloudMsg, GroundSegmentationServer, ServerConfig
 
-    # queue_depth >= batch_max: the worker drains at most 1 + queue_depth
-    # messages, so a 4-deep queue could never assemble a 6-batch
+    # queue_depth >= batch_max: a busy worker finds at most queue_depth
+    # messages waiting, so a 4-deep queue could never assemble a 6-batch
     srv = GroundSegmentationServer(
         config=ServerConfig(capacity=capacity, batch_max=batch_max,
                             queue_depth=max(4, 2 * batch_max)),
         device=device)
-    lats = []
-    srv.on_result(lambda res: lats.append(time.perf_counter() - res.msg.stamp))
+    lats, errors = [], []
+    srv.on_result(lambda res: (lats.append(time.perf_counter() - res.msg.stamp),
+                               errors.append(res.error)))
     # warm both dispatch shapes the worker uses (B=1 and B=batch_max)
     srv._model.estimate_ground(scans[0])
     if batch_max > 1:
@@ -129,6 +133,10 @@ def overload(scans, frames, rate_hz, batch_max, device, capacity, drain_s=120.0)
     if processed + dropped < frames:
         raise SystemExit(f"overload batch_max={batch_max}: {frames - processed - dropped} "
                          f"messages unanswered after {drain_s} s")
+    failed = [e for e in errors if e is not None]
+    if failed:
+        raise SystemExit(f"overload batch_max={batch_max}: {len(failed)} messages "
+                         f"raised, first {failed[0]!r}")
     return {
         "mode": f"overload_batch{batch_max}",
         "offered_hz": rate_hz,

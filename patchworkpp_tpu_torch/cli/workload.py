@@ -22,6 +22,16 @@ DATA_ENV = "PPK_DATA_DIR"
 CYCLE = 6
 
 
+def scan_paths(data_dir: str) -> List[str]:
+    """The cycle's six files, ``data_dir``/000000.bin .. 000005.bin; raises
+    FileNotFoundError when one is missing."""
+    paths = [os.path.join(data_dir, f"{i:06d}.bin") for i in range(CYCLE)]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(f"{data_dir} lacks {missing}")
+    return paths
+
+
 def scan_cycle(seed: int = 0, sub: int = 1) -> Tuple[str, List[np.ndarray]]:
     """(workload name, six scans): ("kitti6", the KITTI scans of
     ``$PPK_DATA_DIR``) when the variable is set, else ("synth6",
@@ -29,11 +39,7 @@ def scan_cycle(seed: int = 0, sub: int = 1) -> Tuple[str, List[np.ndarray]]:
     sparser feed, or a small run on the CPU)."""
     data_dir = os.environ.get(DATA_ENV)
     if data_dir:
-        paths = [os.path.join(data_dir, f"{i:06d}.bin") for i in range(CYCLE)]
-        missing = [p for p in paths if not os.path.exists(p)]
-        if missing:
-            raise FileNotFoundError(f"{DATA_ENV}={data_dir} lacks {missing}")
-        name, scans = "kitti6", [read_bin(p) for p in paths]
+        name, scans = "kitti6", [read_bin(p) for p in scan_paths(data_dir)]
     else:
         name, scans = "synth6", [make_scan(seed, i) for i in range(CYCLE)]
     if sub > 1:

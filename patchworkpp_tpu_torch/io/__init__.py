@@ -1,5 +1,7 @@
-"""Data layer: KITTI/SemanticKITTI readers, padding, evaluation, and the
-synthetic scans that stand in where no KITTI scan is at hand."""
+"""Data layer: KITTI/SemanticKITTI readers, padding, evaluation, the native
+prefetching loader (``native_loader``: built at first use, see
+:func:`native_loader.available`), and the synthetic scans that stand in
+where no KITTI scan is at hand."""
 
 from patchworkpp_tpu_torch.io.kitti import (
     GROUND_LABELS,
@@ -11,6 +13,7 @@ from patchworkpp_tpu_torch.io.kitti import (
     read_bin,
     read_labels,
 )
+from patchworkpp_tpu_torch.io.native_loader import NativeScanLoader
 
 __all__ = [
     "read_bin",
@@ -21,4 +24,5 @@ __all__ = [
     "EvalResult",
     "ground_truth_mask",
     "evaluate_masks",
+    "NativeScanLoader",
 ]

@@ -135,7 +135,7 @@ class PatchworkPP:
         if chunks > 1:
             raise NotImplementedError(
                 "chunks > 1 (the chunked frame, parallel/chunked.py) is not "
-                "ported yet: ROADMAP queue 1, item 11 (multi-device)"
+                "ported yet: ROADMAP queue 1, item 13 (multi-device)"
             )
         device = torch.device(device or "cuda")
         if device.type == "cuda" and not torch.cuda.is_available():

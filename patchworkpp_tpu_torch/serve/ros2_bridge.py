@@ -128,6 +128,8 @@ if HAVE_ROS2:  # pragma: no cover
             self.pub_cloud.publish(msg)
 
         def _publish(self, out) -> None:
+            if out.error is not None:  # the scan raised: nothing to publish
+                return
             pts = out.msg.points[:, :3]
             header_frame = self.base_frame
             g = point_cloud2.create_cloud_xyz32(

@@ -23,12 +23,20 @@ thread launches on that device (``torch.cuda.current_stream`` is per
 thread). The fit kernel is built at its first launch, so on a fresh process
 the worker's first frame builds it.
 
-Two behaviours of the JAX package's server are kept as they are (VERDICT.md
-"What's weak" #1 and #2; the ROADMAP holds them for both packages):
-a scan that raises in the worker ends the worker thread (later messages are
-still accepted and never answered; the exception is kept in
-``worker_error``), and a ``batch_max`` above ``queue_depth`` never batches
-(the worker drains at most 1 + ``queue_depth`` messages).
+Three behaviours differ from the JAX package's server on purpose (its
+faults, VERDICT.md "What's weak" #1, #2 and #5):
+
+- a scan that raises in the worker is answered, not fatal: its
+  ``ResultMsg`` carries ``result=None`` and the exception in ``error``, and
+  the worker goes on serving (``worker_error`` keeps the last one). The JAX
+  server's worker ends on it and leaves later messages unanswered;
+- a ``ServerConfig`` whose ``batch_max`` the queue cannot fill
+  (``batch_max > queue_depth``: a busy worker comes back to at most
+  ``queue_depth`` waiting messages) raises ``ValueError``. The JAX server
+  accepts it and never batches;
+- ``latency_s`` is each message's own time from ``publish()`` to its answer,
+  its wait in the queue included. The JAX server gives every message of a
+  batch the batch's inference time.
 
 A ROS 2 bridge, when rclpy is available, is a thin adapter over this class
 (see serve/ros2_bridge.py).
@@ -41,7 +49,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,8 +72,9 @@ class ResultMsg:
     """Published result (the three-publisher analog, indices not copies)."""
 
     msg: CloudMsg
-    result: SegmentationResult
-    latency_s: float
+    result: Optional[SegmentationResult]  # None when the scan raised
+    latency_s: float                      # publish() to this answer
+    error: Optional[BaseException] = None
 
 
 @dataclasses.dataclass
@@ -78,9 +87,21 @@ class ServerConfig:
     # the per-frame loop, one readback for the batch). Only the exact size
     # batch_max is ever batched. 1 disables batching (live/low-latency mode).
     batch_max: int = 1
-    # The JAX package's chunked single-device frame; not ported yet, so any
-    # value but 1 makes the engine raise.
+    # The JAX package's chunked single-device frame; not ported yet (ROADMAP
+    # queue 1, item 13, multi-device), so any value but 1 makes the engine
+    # raise.
     chunks: int = 1
+
+    def __post_init__(self) -> None:
+        # A busy worker comes back to at most queue_depth waiting messages
+        # (drop-oldest keeps the queue at its depth), so a larger batch
+        # would assemble only if a publish landed between its dequeues.
+        # (queue_depth <= 0 is queue.Queue's unbounded queue.)
+        if 0 < self.queue_depth < self.batch_max:
+            raise ValueError(
+                f"batch_max {self.batch_max} > queue_depth {self.queue_depth}: "
+                "a backlog that size never waits in the queue, so it never batches"
+            )
 
 
 class GroundSegmentationServer:
@@ -102,7 +123,8 @@ class GroundSegmentationServer:
         )
         self.device = self._model.device
         self._subs: List[Callable[[ResultMsg], None]] = []
-        self._queue: "queue.Queue[Optional[CloudMsg]]" = queue.Queue(
+        # (publish time, message); None stops the worker
+        self._queue: "queue.Queue[Optional[Tuple[float, CloudMsg]]]" = queue.Queue(
             maxsize=self.config.queue_depth
         )
         self._worker: Optional[threading.Thread] = None
@@ -125,18 +147,19 @@ class GroundSegmentationServer:
         """Enqueue a scan (the pointcloud_topic subscription)."""
         if not self._running:
             raise RuntimeError("server not started")
+        item = (time.perf_counter(), msg)
         try:
-            self._queue.put_nowait(msg)
+            self._queue.put_nowait(item)
         except queue.Full:
             if not self.config.drop_when_full:
-                self._queue.put(msg)
+                self._queue.put(item)
                 return
             try:  # drop oldest, keep newest — real-time semantics
                 self._queue.get_nowait()
                 self.frames_dropped += 1
             except queue.Empty:
                 pass
-            self._queue.put_nowait(msg)
+            self._queue.put_nowait(item)
 
     # ------------------------------------------------------------------ lifecycle
 
@@ -175,8 +198,7 @@ class GroundSegmentationServer:
         try:
             with on_card:
                 self._serve()
-        except BaseException as e:
-            # kept from the JAX package: the exception ends the worker
+        except BaseException as e:  # a fault outside a scan: the worker ends
             self.worker_error = e
             raise
 
@@ -184,10 +206,10 @@ class GroundSegmentationServer:
         stopped = False
         while not stopped:
             with self.timer.segment("wait"):
-                msg = self._queue.get()
-            if msg is None or not self._running:
+                item = self._queue.get()
+            if item is None or not self._running:
                 break
-            batch = [msg]
+            batch = [item]
             # Backlog batching: drain up to batch_max pending scans and run
             # them as one sequence call, at the exact size batch_max only.
             while len(batch) < self.config.batch_max:
@@ -199,26 +221,40 @@ class GroundSegmentationServer:
                     stopped = True
                     break
                 batch.append(nxt)
-            t0 = time.perf_counter()
             with self.timer.segment("infer"):
-                if len(batch) == self.config.batch_max and len(batch) > 1:
-                    results = self._model.estimate_ground_sequence(
-                        [m.points for m in batch]
-                    )
-                else:
-                    results = [
-                        self._model.estimate_ground(m.points) for m in batch
-                    ]
-            latency = time.perf_counter() - t0
+                answers = self._infer([m for _, m in batch])
             self.frames_processed += len(batch)
             for _ in batch:
                 self.timer.tick_frame()
-            for m, r in zip(batch, results):
-                out = ResultMsg(msg=m, result=r, latency_s=latency)
+            for (t_pub, m), (r, err) in zip(batch, answers):
+                out = ResultMsg(msg=m, result=r, latency_s=time.perf_counter() - t_pub,
+                                error=err)
                 for cb in self._subs:
                     cb(out)
             if not self._running:
                 break
+
+    def _infer(self, msgs: List[CloudMsg]):
+        """(result, error) for each message, in order. An exception is kept
+        as that message's error; a batch whose sequence call raises runs
+        again message by message from the state it started with (the frame
+        step returns a new state, so restoring the old one undoes a run
+        that a mixed 3/4-column batch committed before the failure)."""
+        if len(msgs) == self.config.batch_max and len(msgs) > 1:
+            start = self._model.state
+            try:
+                return [(r, None) for r in self._model.estimate_ground_sequence(
+                    [m.points for m in msgs])]
+            except Exception:
+                self._model.state = start
+        out = []
+        for m in msgs:
+            try:
+                out.append((self._model.estimate_ground(m.points), None))
+            except Exception as e:  # answered with the error; keep serving
+                self.worker_error = e
+                out.append((None, e))
+        return out
 
     # ------------------------------------------------------------------ sync API
 

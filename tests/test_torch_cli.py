@@ -89,7 +89,7 @@ def test_bench_timed_groups_split_and_sync():
 
 
 def test_bench_refuses_chunks_and_names_metrics():
-    with pytest.raises(SystemExit, match="item 11"):
+    with pytest.raises(SystemExit, match="item 13"):
         bench.main(["--chunks", "2"])
     args = bench.parse_args(["--densify", "2", "--fused", "onehot"])
     assert bench._name(args, "kitti6") == "kitti6_x2_onehot"

@@ -166,7 +166,7 @@ def test_verbose_print_uses_packed_count(capsys):
 
 
 def test_chunks_switch():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         PatchworkPP(device="cpu", chunks=2)
     with pytest.raises(ValueError, match="chunks"):
         PatchworkPP(device="cpu", chunks=0)

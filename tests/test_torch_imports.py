@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no module of patchworkpp_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package (checked on the source with
+"""The PyTorch port stands alone: no module of patchworkpp_tpu_torch, and
+neither chip_smoke.py nor scripts/gpu_parity.py, imports jax or the JAX package (checked on the source with
 the ast module, since importing would pull in whatever the interpreter has
 already loaded)."""
 
@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "patchworkpp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "patchworkpp_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "gpu_parity.py"]
 
 
 def _imported_modules(path: Path):
@@ -61,7 +62,13 @@ def test_port_has_the_expected_files():
         "patchworkpp_tpu_torch/cli/soak.py",
         "patchworkpp_tpu_torch/cli/demo_sequential.py",
         "patchworkpp_tpu_torch/cli/demo_multi_stream.py",
+        "patchworkpp_tpu_torch/cli/demo_visualize.py",
+        "patchworkpp_tpu_torch/cli/eval_semantickitti.py",
+        "patchworkpp_tpu_torch/io/native_loader.py",
+        "patchworkpp_tpu_torch/oracle/__init__.py",
+        "patchworkpp_tpu_torch/oracle/numpy_oracle.py",
         "chip_smoke.py",
+        "scripts/gpu_parity.py",
     ):
         assert want in names
     for src in ("fit_grid.cu", "fit_onehot.cu", "fit_program.cuh", "fit_math.cuh"):

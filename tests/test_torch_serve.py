@@ -9,9 +9,11 @@ equal the JAX tiled engine's frame by frame (state floats within
 test_torch_frame.py's tolerances); the other paths must equal the port's
 own facade bit for bit, which the facade and frame tests hold to JAX.
 
-Two behaviours of the JAX server are kept on purpose (VERDICT.md "What's
-weak" #1 and #2), and stated here: a scan that raises in the worker ends the
-worker thread, and batch_max > queue_depth never batches.
+Three behaviours of the port's server differ from the JAX server's on
+purpose (its faults, VERDICT.md "What's weak" #1, #2 and #5), and are stated
+here: a scan that raises is answered with an error result and the worker
+keeps serving; a batch_max the queue cannot fill is refused; latency_s runs
+from publish() and includes the wait in the queue.
 """
 
 from __future__ import annotations
@@ -174,31 +176,43 @@ def test_mixed_density_stream_on_one_server():
 
 
 def test_worker_ends_on_a_scan_that_raises(monkeypatch):
-    """Kept from the JAX server (VERDICT "What's weak" #1): a scan over the
-    fixed capacity raises in the worker and ends it; later messages are
-    accepted and never answered. The exception is kept in worker_error."""
+    """The JAX server's worker ends on a scan that raises (VERDICT "What's
+    weak" #1; the test's name states that behaviour) and leaves later
+    messages unanswered. The port's does not: a scan over the fixed capacity
+    is answered with result None and its ValueError, worker_error keeps it,
+    the worker stays alive and the next message is answered with the labels
+    of a facade that never saw the bad scan."""
     seen = []
     monkeypatch.setattr(threading, "excepthook", lambda a: seen.append(a.exc_value))
     srv = _server()
-    got, _ = _collect(srv, 1)
-    srv.start()
-    worker = srv._worker
-    srv.publish(CloudMsg(points=np.zeros((CAP + 1, 4), np.float32), stamp=0.0))
-    worker.join(TIMEOUT)
-    assert not worker.is_alive() and not srv.worker_alive
-    assert isinstance(srv.worker_error, ValueError) and "capacity" in str(srv.worker_error)
-    assert seen and seen[0] is srv.worker_error
-    srv.publish(CloudMsg(points=synth_cloud(0, exact_edges=False), stamp=1.0))
-    time.sleep(0.2)
-    assert got == [] and srv.frames_processed == 0
-    srv.stop(timeout=1.0)
+    got, done = _collect(srv, 2)
+    good = synth_cloud(0, exact_edges=False)
+    with srv:
+        srv.publish(CloudMsg(points=np.zeros((CAP + 1, 4), np.float32), stamp=0.0))
+        srv.publish(CloudMsg(points=good, stamp=1.0))
+        assert done.wait(TIMEOUT), "the message after the bad scan was not answered"
+        assert srv.worker_alive
+    bad, ok = got
+    assert bad.result is None and isinstance(bad.error, ValueError)
+    assert "capacity" in str(bad.error) and srv.worker_error is bad.error
+    assert ok.error is None and ok.msg.stamp == 1.0
+    ref = PatchworkPP(capacity=CAP, device="cpu")
+    np.testing.assert_array_equal(ok.result.ground_mask, ref.estimate_ground(good).ground_mask)
+    assert srv.sensor_height == ref.sensor_height
+    assert srv.frames_processed == 2 and seen == []
 
 
 def test_batch_max_over_queue_depth_never_batches():
-    """Kept from the JAX server (VERDICT "What's weak" #2): with
-    queue_depth=2 < batch_max=3 the worker drains at most 1 + 2 messages
-    after a wait, so a backlog never reaches a batch of 3."""
-    srv = _server(queue_depth=2, batch_max=3)
+    """The JAX server accepts a batch_max its queue cannot fill and then
+    never batches (VERDICT "What's weak" #2; the test's name states that
+    behaviour): a busy worker comes back to at most queue_depth waiting
+    messages. The port refuses such a config; at batch_max == queue_depth a
+    held worker's backlog runs as one sequence call."""
+    with pytest.raises(ValueError, match="queue_depth"):
+        ServerConfig(queue_depth=2, batch_max=3)
+    with pytest.raises(ValueError, match="queue_depth"):
+        ServerConfig(queue_depth=4, batch_max=6)
+    srv = _server(queue_depth=2, batch_max=2)
     seq_calls = []
     seq = srv._model.estimate_ground_sequence
     srv._model.estimate_ground_sequence = lambda clouds: seq_calls.append(len(clouds)) or seq(clouds)
@@ -224,7 +238,39 @@ def test_batch_max_over_queue_depth_never_batches():
             time.sleep(0.02)
     assert srv.frames_dropped == 2
     assert [out.msg.stamp for out in got] == [0.0, 3.0, 4.0]
-    assert seq_calls == []
+    assert seq_calls == [2]
+
+
+def test_latency_includes_the_wait_in_the_queue():
+    """latency_s runs from publish() to the answer, per message: a message
+    published while the worker is held answers with a latency that covers
+    the hold. (The JAX server reports the batch's inference time for every
+    message, without the wait: VERDICT "What's weak" #5.)"""
+    srv = _server()
+    entered, release = threading.Event(), threading.Event()
+    got = []
+    hold_s = 0.5
+
+    def cb(out):
+        got.append(out)
+        if len(got) == 1:
+            entered.set()
+            release.wait(TIMEOUT)
+
+    srv.on_result(cb)
+    with srv:
+        srv.publish(CloudMsg(points=synth_cloud(0, exact_edges=False), stamp=0.0))
+        assert entered.wait(TIMEOUT)
+        t_pub = time.perf_counter()
+        srv.publish(CloudMsg(points=synth_cloud(1, exact_edges=False), stamp=1.0))
+        time.sleep(hold_s)
+        release.set()
+        t_end = time.time() + TIMEOUT
+        while len(got) < 2 and time.time() < t_end:
+            time.sleep(0.02)
+        t_back = time.perf_counter()
+    assert len(got) == 2 and got[1].msg.stamp == 1.0
+    assert hold_s <= got[1].latency_s <= t_back - t_pub
 
 
 def test_multi_stream_isolated_states_and_checkpoint(tmp_path):
