@@ -56,6 +56,17 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    --batch 1 and 2 (precision = recall = f1 = 1); cli/stream_bench.py
    streams the files through the native loader and the numpy one, with
    the same frames and first-epoch labels, their scans/s printed;
+4d. the multi-device layer (patchworkpp_tpu_torch/parallel/), on
+   make_scan(seed, 0..2) chained at capacity 131072: PatchworkPP(chunks=2)
+   on the card (the composed fit program, so K1 and K2 launch 0 times)
+   equal to the CPU chunked path bit for bit and its labels equal to the
+   card's K1 frame (a chunks=1 control launches K1 once a frame); the
+   chunked frame timed with CUDA events; then two gloo ranks, both on this
+   card, in their own processes under a timeout: the point-sharded frame
+   equal to the card's chunks=2 frame bit for bit (every FrameResult field
+   and the state, K1 not launched) and two frame-parallel streams, one per
+   rank, each equal to its own facade, with K1 launched once per frame per
+   rank; the 2-rank frame time on the host clock;
 5. time both kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
    after warm-up; print K1's time per walk of
@@ -594,6 +605,203 @@ def references_phase(here, card, device="cuda") -> dict:
     return out
 
 
+MULTI_FRAMES = 3
+MULTI_TIMEOUT = 300.0
+
+
+def _multi_device_rank(rank: int, nprocs: int, cfg: dict) -> None:
+    """One rank of phase 4d, on cuda:0 (gloo gathers through the host):
+    the point-sharded frame over ``MULTI_FRAMES`` chained scans, then two
+    frame-parallel streams (stream b: make_scan(seed + b, f)), each with
+    the launch counts set to 0 just before and read just after. Writes
+    ``rank<r>.npz``."""
+    import torch
+
+    from patchworkpp_tpu_torch import Params, init_state
+    from patchworkpp_tpu_torch.io.synthetic import make_scan
+    from patchworkpp_tpu_torch.ops import fit_kernel as fk
+    from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.parallel import (
+        batch_init_state,
+        make_batch_frame_fn,
+        make_point_sharded_frame_fn,
+    )
+
+    dev = torch.device(cfg["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    p = Params()
+    out = {}
+
+    def upload(cloud):
+        x = torch.zeros((CAPACITY, 4), device=dev)
+        x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
+        return x, len(cloud)
+
+    scans = [[upload(make_scan(cfg["seed"] + b, f)) for f in range(MULTI_FRAMES)]
+             for b in range(nprocs)]
+    frame = make_point_sharded_frame_fn(p, device=dev)
+    frame(init_state(p, dev), *scans[0][0])  # warm-up
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    st = init_state(p, dev)
+    host_ms = []
+    for f, (x, n) in enumerate(scans[0]):
+        t0 = time.perf_counter()
+        st, res = frame(st, x, n)
+        sync()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        out.update({f"ps{f}_{k}": getattr(res, k).cpu().numpy() for k in res._fields})
+    out.update({f"ps_state_{k}": v for k, v in st.to_numpy().items()})
+    out["ps_launches"] = np.array([fkg.fused_fit_grid.launches, fk.fused_fit.launches])
+    out["ps_host_ms"] = np.array(host_ms)
+
+    batch = make_batch_frame_fn(p, device=dev)
+    states = batch_init_state(p, nprocs, dev)
+    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    for f in range(MULTI_FRAMES):
+        states, res = batch(states, torch.stack([scans[b][f][0] for b in range(nprocs)]),
+                            [scans[b][f][1] for b in range(nprocs)])
+        for b in range(nprocs):
+            out[f"fp{f}_{b}_ground_mask"] = res.ground_mask[b].cpu().numpy()
+    out.update({f"fp_state_{k}": v for k, v in states.to_numpy().items()})
+    out["fp_launches"] = np.array([fkg.fused_fit_grid.launches, fk.fused_fit.launches])
+    np.savez(os.path.join(cfg["out"], f"rank{rank}.npz"), **out)
+
+
+def multi_device_phase(seed, device="cuda") -> dict:
+    """Phase 4d: the multi-device layer on ``device``, on make_scan(seed,
+    0..2) chained at capacity 131072. Raises on any failure."""
+    import tempfile
+
+    import torch
+
+    from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
+    from patchworkpp_tpu_torch.io.synthetic import make_scan
+    from patchworkpp_tpu_torch.ops import fit_kernel as fk
+    from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.parallel import make_chunked_frame_fn
+    from patchworkpp_tpu_torch.parallel.selfcheck import spawn
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    per_frame = int(dev.type == "cuda")  # the CPU runs the plain fit
+    p = Params()
+    scans = [make_scan(seed, f) for f in range(MULTI_FRAMES)]
+    out = {}
+
+    def counts():
+        return {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches}
+
+    def run(model, chain):
+        return [model.estimate_ground(s) for s in chain], model.state.to_numpy()
+
+    def same(a, b, label):
+        (ra, sa), (rb, sb) = a, b
+        for i, (x, y) in enumerate(zip(ra, rb)):
+            for f in ("ground_mask", "centers", "normals"):
+                if not np.array_equal(getattr(x, f), getattr(y, f)):
+                    raise AssertionError(f"{label} frame {i}: {f} differ")
+        for k in sa:
+            if not np.array_equal(sa[k], sb[k]):
+                raise AssertionError(f"{label}: state {k} differs")
+
+    # a. the facade, chunks=2, on the card: no K1 launch (the composed fit);
+    # equal to the CPU chunked path bit for bit; labels equal to the card's
+    # K1 frame, whose control run launches K1 once a frame
+    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    chunked = run(PatchworkPP(p, capacity=CAPACITY, device=dev, chunks=2), scans)
+    out["chunked_launches"] = counts()
+    if any(out["chunked_launches"].values()):
+        raise AssertionError(f"chunks=2 launched a fit kernel: {out['chunked_launches']}")
+    same(chunked, run(PatchworkPP(p, capacity=CAPACITY, device="cpu", chunks=2), scans),
+         "chunks=2 card vs cpu")
+    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    plain = run(PatchworkPP(p, capacity=CAPACITY, device=dev), scans)
+    out["control_launches"] = counts()
+    if out["control_launches"] != {"fit_grid": per_frame * MULTI_FRAMES, "fit_onehot": 0}:
+        raise AssertionError(f"chunks=1 control: launches {out['control_launches']}")
+    for i, (a, b) in enumerate(zip(chunked[0], plain[0])):
+        if not np.array_equal(a.ground_mask, b.ground_mask):
+            raise AssertionError(f"chunks=2 vs K1 frame {i}: "
+                                 f"{int((a.ground_mask != b.ground_mask).sum())} labels differ")
+    print(f"chunks=2 on the card: {MULTI_FRAMES} frames == cpu chunked bit for bit, labels "
+          f"== K1 frame; launches {out['chunked_launches']} (control {out['control_launches']})")
+
+    # b. the chunked frame on the card, timed with CUDA events
+    fn = make_chunked_frame_fn(p, 2, device=dev)
+    xs = []
+    for s in scans:
+        x = torch.zeros((CAPACITY, 4), device=dev)
+        x[: len(s)] = torch.from_numpy(s).to(dev)
+        xs.append(x)
+    fn(init_state(p, dev), xs[0], len(scans[0]))  # warm-up
+    st, ref, chunk_ms = init_state(p, dev), [], []
+    for x, s in zip(xs, scans):
+        if dev.type == "cuda":
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            st, res = fn(st, x, len(s))
+            b.record()
+            torch.cuda.synchronize()
+            chunk_ms.append(a.elapsed_time(b))
+        else:
+            st, res = fn(st, x, len(s))
+        ref.append(res)
+    ref_state = st.to_numpy()
+    out["chunked_frame_ms_each"] = chunk_ms
+
+    # c. two gloo ranks, both on this card, in their own processes
+    with tempfile.TemporaryDirectory(prefix="ppk_multi_") as tmp:
+        t0 = time.perf_counter()
+        spawn(_multi_device_rank, 2, ({"seed": seed, "out": tmp, "device": str(dev)},),
+              timeout=MULTI_TIMEOUT)
+        out["two_rank_wall_s"] = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(2)]
+    for r, got in enumerate(ranks):
+        for f, res in enumerate(ref):
+            for k in res._fields:
+                if not np.array_equal(got[f"ps{f}_{k}"], getattr(res, k).cpu().numpy()):
+                    raise AssertionError(f"rank {r} point-sharded frame {f}: {k} differs "
+                                         "from the card's chunks=2 frame")
+        for k, v in ref_state.items():
+            if not np.array_equal(got[f"ps_state_{k}"], v):
+                raise AssertionError(f"rank {r} point-sharded: state {k} differs")
+        if got["ps_launches"].tolist() != [0, 0]:
+            raise AssertionError(f"rank {r}: point-sharded launched {got['ps_launches']}")
+        if got["fp_launches"].tolist() != [per_frame * MULTI_FRAMES, 0]:
+            raise AssertionError(f"rank {r}: frame-parallel launches {got['fp_launches']}, "
+                                 f"expected K1 {MULTI_FRAMES} (once a frame) and K2 0")
+    # frame-parallel stream b == its own facade (stream 0's is the K1 control)
+    facades = [plain, run(PatchworkPP(p, capacity=CAPACITY, device=dev),
+                          [make_scan(seed + 1, f) for f in range(MULTI_FRAMES)])]
+    for b, (results, state) in enumerate(facades):
+        for f, r in enumerate(results):
+            got = ranks[0][f"fp{f}_{b}_ground_mask"][: len(r.ground_mask)]
+            if not np.array_equal(got, r.ground_mask):
+                raise AssertionError(f"frame-parallel stream {b} frame {f}: labels differ "
+                                     "from its facade")
+        for k, v in state.items():
+            if not np.array_equal(ranks[0][f"fp_state_{k}"][b], v):
+                raise AssertionError(f"frame-parallel stream {b}: state {k} differs")
+    out["two_rank_frame_ms_each"] = ranks[0]["ps_host_ms"].tolist()
+    out["chunked_frame_ms"] = float(np.median(chunk_ms)) if chunk_ms else None
+    out["two_rank_frame_ms"] = float(np.median(out["two_rank_frame_ms_each"]))
+    print(f"2 gloo ranks on the card: point-sharded == chunks=2 bit for bit "
+          f"({MULTI_FRAMES} frames, every field and the state), K1 launches 0; "
+          f"frame-parallel, 2 streams == their facades, K1 {per_frame * MULTI_FRAMES} a rank")
+    print(f"chunks=2 frame median {out['chunked_frame_ms']} ms (CUDA events) "
+          f"{[round(t, 3) for t in chunk_ms]}; 2-rank point-sharded frame median "
+          f"{out['two_rank_frame_ms']:.3f} ms (host clock, rank 0) "
+          f"{[round(t, 3) for t in out['two_rank_frame_ms_each']]}; "
+          f"spawn to exit {out['two_rank_wall_s']:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"multi-device phase: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -779,6 +987,9 @@ def main() -> int:
     # ---- 4c. references: the parity script, the oracle, eval, native loader
     references = references_phase(here, card)
 
+    # ---- 4d. the multi-device layer: chunked, point-sharded, frame-parallel
+    multi = multi_device_phase(args.seed)
+
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
 
@@ -879,7 +1090,7 @@ def main() -> int:
         "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
         "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
         "k1_k2_max_abs_diff": k1k2_err, "serving": serving,
-        "references": references, **kernels,
+        "references": references, "multi_device": multi, **kernels,
     }
     if args.profile:
         record["profile"] = {}

@@ -9,7 +9,8 @@ frame late, so the copy overlaps the next frame's work. Two loaders:
 - ``numpy`` (default): each scan padded once on the host, kept in pinned
   memory on a card and uploaded from there every frame;
 - ``native``: the prefetching C++ loader (``io/native_loader.py``) stages
-  each scan from its file, padded, on its prefetch thread; each staged
+  each scan from its file, padded, on three prefetch threads (the JAX
+  CLI's setting); each staged
   buffer is copied into one pinned tensor and uploaded from it. It needs
   the scans as files (``--scan-dir`` or ``$PPK_DATA_DIR``) and raises where
   the loader cannot be built.
@@ -58,7 +59,7 @@ def _native_feed(paths, capacity: int, dev, total: int) -> Iterator[Tuple[torch.
     on_card = dev.type == "cuda"
     staged = torch.empty((capacity, 4), dtype=torch.float32, pin_memory=on_card)
     uploaded = torch.cuda.Event() if on_card else None
-    with NativeScanLoader(paths, capacity, queue_depth=4, loop=True) as ld:
+    with NativeScanLoader(paths, capacity, queue_depth=4, n_threads=3, loop=True) as ld:
         for f, (view, npts, _) in enumerate(ld):
             if f == total:
                 break

@@ -1,9 +1,9 @@
 """ctypes wrapper for the native prefetching scan loader (port of
-``patchworkpp_tpu/io/native_loader.py``, over the repo's
-``native/loader.cpp``).
+``patchworkpp_tpu/io/native_loader.py``, over the port's own
+``csrc/loader.cpp``).
 
 The native loader stages KITTI scans as fixed-capacity padded (capacity, 4)
-float32 buffers on a prefetch thread, in scan order, so the host side of a
+float32 buffers on prefetch threads, in scan order, so the host side of a
 streaming loop is a buffer handoff instead of a per-frame read + pad in
 Python. The port builds the library itself at first use: ``g++ -O2 -shared
 -fPIC -pthread`` into ``build/`` beside the package (git-ignored), the
@@ -27,7 +27,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG.parent / "native" / "loader.cpp"
+SOURCE = _PKG / "csrc" / "loader.cpp"
 BUILD_DIR = _PKG / "build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -40,7 +40,7 @@ def _library() -> Path:
 
 
 def build() -> ctypes.CDLL:
-    """Compile ``native/loader.cpp`` (once per content), load and bind it.
+    """Compile ``csrc/loader.cpp`` (once per content), load and bind it.
     Raises RuntimeError when the source, g++ or the build is missing."""
     global _lib
     if _lib is not None:
@@ -104,22 +104,22 @@ class NativeScanLoader:
     npts 0 (``io_errors``); a scan longer than ``capacity`` is cut to it
     (``truncations``, ``last_truncated``).
 
-    The loader runs one prefetch thread. ``native/loader.cpp`` lets a worker
-    claim a scan index before it holds a free slot, so with several workers
-    the slots can all fill with later scans while the worker holding the
-    next one waits for a slot, and the consumer waits for that scan: a
-    deadlock (seen within seconds in loop mode with 3 workers and 4 slots).
-    One worker fills the slots in scan order and cannot wedge.
+    ``n_threads`` prefetch threads (2, the JAX wrapper's default) read
+    ahead. The source is the JAX package's ``native/loader.cpp`` with a
+    worker taking a free slot before it claims a scan index; in the
+    original the slots could all fill with later scans while the worker
+    holding the next one waited for a slot (a deadlock with more than one
+    worker).
     """
 
     def __init__(self, paths: List[str], capacity: int, queue_depth: int = 4,
-                 loop: bool = False) -> None:
+                 n_threads: int = 2, loop: bool = False) -> None:
         lib = build()
         self._lib = lib
         self.capacity = capacity
         self._paths = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
         self._handle = lib.ppk_loader_create(self._paths, len(paths), capacity,
-                                             queue_depth, 1, int(loop))
+                                             queue_depth, n_threads, int(loop))
         if not self._handle:
             raise RuntimeError("failed to create the native loader")
         self._held = None

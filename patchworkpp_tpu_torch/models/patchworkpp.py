@@ -11,6 +11,7 @@ in one device -> host copy of one packed buffer.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import NamedTuple, Optional
 
@@ -118,8 +119,12 @@ class PatchworkPP:
     to the next multiple of 8192 rows. ``fused`` picks the engine
     (``pipeline.make_frame_fn``): None/"tiled", True/"grid" and
     "grid_iota" run the fit kernel K1, "onehot" the unrolled fit kernel K2,
-    False the unfused engine. ``chunks`` > 1 (the JAX package's chunked
-    single-device frame) is not ported yet and raises.
+    False the unfused engine. ``chunks`` = K > 1 runs each frame as K row
+    blocks on the device (``parallel/chunked.py``: the point-sharded
+    program's emulation, not a speed lever; "tiled" or False only, and the
+    tiled fit then runs as plain PyTorch ops, not K1); the capacity must
+    then be a multiple of K (a fixed one that is not raises; the automatic
+    one rounds up to a multiple of lcm(8192, K)).
     """
 
     def __init__(
@@ -132,11 +137,6 @@ class PatchworkPP:
     ) -> None:
         if chunks < 1:
             raise ValueError(f"chunks must be >= 1, got {chunks}")
-        if chunks > 1:
-            raise NotImplementedError(
-                "chunks > 1 (the chunked frame, parallel/chunked.py) is not "
-                "ported yet: ROADMAP queue 1, item 13 (multi-device)"
-            )
         device = torch.device(device or "cuda")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -148,6 +148,7 @@ class PatchworkPP:
         self.geom = CZMGeometry.create(self.params)
         self._fixed_capacity = capacity
         self._fused = fused
+        self._chunks = chunks
         self._fns = {}  # (kind, enable_rnr) -> frame or sequence fn
         self.state = init_state(self.params, device)
         self.last_result: Optional[FrameResult] = None
@@ -171,7 +172,16 @@ class PatchworkPP:
     # ------------------------------------------------------------------ run
 
     def _capacity(self, n: int) -> int:
+        """The padded capacity of an n-point scan: the fixed one, else the
+        next multiple of 8192, rounded up to a multiple of lcm(8192, chunks)
+        where ``chunks`` does not divide it (JAX
+        ``models/patchworkpp.py:_capacity``)."""
         cap = self._fixed_capacity or _round_capacity(n)
+        if cap % self._chunks:
+            if self._fixed_capacity:
+                raise ValueError(f"capacity {cap} not divisible by chunks={self._chunks}")
+            q = math.lcm(8192, self._chunks)
+            cap = -(-cap // q) * q
         if n > cap:
             raise ValueError(f"scan has {n} points > fixed capacity {cap}")
         return cap
@@ -184,8 +194,17 @@ class PatchworkPP:
             p = self.params if enable_rnr == self.params.enable_RNR else (
                 self.params.replace(enable_RNR=enable_rnr)
             )
-            make = make_frame_fn if kind == "frame" else make_sequence_fn
-            fn = make(p, self.geom, self.device, fused=self._fused)
+            if self._chunks > 1:
+                from patchworkpp_tpu_torch.parallel.chunked import (
+                    make_chunked_frame_fn,
+                    make_chunked_sequence_fn,
+                )
+
+                make = make_chunked_frame_fn if kind == "frame" else make_chunked_sequence_fn
+                fn = make(p, self._chunks, self.geom, self._fused, self.device)
+            else:
+                make = make_frame_fn if kind == "frame" else make_sequence_fn
+                fn = make(p, self.geom, self.device, fused=self._fused)
             self._fns[(kind, enable_rnr)] = fn
         return fn
 

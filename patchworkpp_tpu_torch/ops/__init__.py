@@ -106,6 +106,17 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 ROW_WINDOW = 32
 
 
+def seq_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis one element after another, from 0:
+    ``((0 + v0) + v1) + ...``, as XLA:CPU's loop adds a row shorter than
+    its 32-wide windows (the JAX package's 20-slot LPR merge,
+    ``parallel/point_sharded.py:merge_lpr_table``, rounds so)."""
+    acc = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for k in range(v.shape[-1]):
+        acc = acc + v[..., k]
+    return acc
+
+
 def row_sum(v: torch.Tensor) -> torch.Tensor:
     """Sum over a last axis of 128 (any multiple of 32) in XLA:CPU's order.
 
@@ -117,14 +128,7 @@ def row_sum(v: torch.Tensor) -> torch.Tensor:
     ``(((0 + w0) + w1) + w2) + w3`` with ``w = ((0 + v0) + v1) + ... + v31``
     over each window; the fit kernels add a tile's rows in this order too."""
     n = v.shape[-1]
-    w = v.reshape(*v.shape[:-1], n // ROW_WINDOW, ROW_WINDOW)
-    acc = torch.zeros(w.shape[:-1], dtype=v.dtype, device=v.device)
-    for k in range(ROW_WINDOW):
-        acc = acc + w[..., k]
-    out = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
-    for k in range(n // ROW_WINDOW):
-        out = out + acc[..., k]
-    return out
+    return seq_sum(seq_sum(v.reshape(*v.shape[:-1], n // ROW_WINDOW, ROW_WINDOW)))
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:

@@ -138,9 +138,24 @@ def _tile_moments(xs, ys, zs, sx, sy, sz, mask):
     ))
 
 
+def _lpr_table(zs, take, grank, num_lpr: int):
+    """(NT, 2 * num_lpr) per-tile [z at each shard rank slot | occupancy]:
+    slot r of a tile holds the z of its lane whose rank among the shard's
+    eligible points of the patch is r. ``take`` implies ``grank <
+    num_lpr``, and each (patch, slot) has one point, so every per-patch sum
+    of these columns is an exact selection."""
+    nt = zs.shape[0]
+    slot = torch.where(take > 0.5, grank, num_lpr).to(torch.int64)  # num_lpr: dropped
+    z_tab = torch.zeros((nt, num_lpr + 1), dtype=zs.dtype, device=zs.device)
+    occ = torch.zeros_like(z_tab)
+    z_tab.scatter_(1, slot, zs)
+    occ.scatter_(1, slot, take)
+    return torch.cat([z_tab[:, :num_lpr], occ[:, :num_lpr]], dim=1)
+
+
 def tiled_fit(
     xs, ys, zs, valid_f, tile_patch, pad_start, gates_p, margin_thr,
-    params: Params, reduce=_reduce_tiles_split3,
+    params: Params, reduce=_reduce_tiles_split3, comm=None,
 ):
     """Run the fit program on the tiled layout.
 
@@ -153,12 +168,20 @@ def tiled_fit(
       margin_thr: () f32 zone-0 seed margin (margin * sensor_height).
       reduce: the per-tile -> per-patch sum: K1's split-bf16x3 sums
         (default) or K2's plain f32 sums (``_reduce_tiles_f32``).
+      comm: a sharded ``pipeline.FrameComm`` (JAX ``ops/tiled_fit.py:
+        254-282``, ``:315-319``) or None: its ``merge_lpr_table`` and
+        ``reduce_patches`` are the program's only cross-shard movement.
+        Under it each SEEDFIT pass builds the shard's dense LPR candidate
+        table (slot r: the shard's r-th lowest eligible z of the patch)
+        and sums it, like the occupancy and the eligible counts, with
+        ``reduce``; every pass's moments go through ``reduce_patches``.
 
     Returns:
       (S, out_cols) f32 per-patch result table (fit_kernel OUT_* layout,
       extended by out_layout).
     """
     p = params
+    sharded = comm is not None and comm.is_sharded
     nt = xs.shape[0]
     spad = gates_p.shape[0]
     dev = xs.device
@@ -209,10 +232,20 @@ def tiled_fit(
             quota = torch.clamp_min(p.num_lpr - prior, 0)
             rank = _lane_prefix_exclusive(e)
             take = elig * (rank < quota[:, None]).to(torch.float32)
-            per = torch.stack([row_sum(zs * take), row_sum(take)], dim=1)
-            tot = reduce(per, idx, ok)
-            cnt = tot[:, 1]
-            lpr_p = torch.where(cnt > 0, tot[:, 0] / torch.clamp_min(cnt, 1.0), zero)
+            if sharded:
+                loc = reduce(torch.cat([
+                    _lpr_table(zs, take, prior[:, None] + rank, p.num_lpr),
+                    m_t[:, None].to(torch.float32),
+                ], dim=1), idx, ok)
+                lpr_sum, cnt = comm.merge_lpr_table(
+                    loc[:, :p.num_lpr], loc[:, p.num_lpr:2 * p.num_lpr],
+                    loc[:, 2 * p.num_lpr], p.num_lpr,
+                )
+            else:
+                per = torch.stack([row_sum(zs * take), row_sum(take)], dim=1)
+                tot = reduce(per, idx, ok)
+                lpr_sum, cnt = tot[:, 0], tot[:, 1]
+            lpr_p = torch.where(cnt > 0, lpr_sum / torch.clamp_min(cnt, 1.0), zero)
             mask = (
                 active
                 * (zs < lpr_p[tpc][:, None] + th).to(torch.float32)
@@ -227,6 +260,8 @@ def tiled_fit(
             mask = active * (dist < th).to(torch.float32)
 
         momp = reduce(_tile_moments(xs, ys, zs, sx, sy, sz, mask), idx, ok)
+        if sharded:
+            momp = comm.reduce_patches(momp)
         if kind[i] == K_FITDIST and final[i]:
             g_count = momp[:, 0]
 

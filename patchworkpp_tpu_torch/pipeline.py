@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from patchworkpp_tpu_torch.ops import div, f32, fma, plane_dist, sqrt, tree_sum
+from patchworkpp_tpu_torch.ops import div, f32, fma, plane_dist, seq_sum, sqrt, tree_sum
 from patchworkpp_tpu_torch.ops.binning import bin_points, factored_patch_counts
 from patchworkpp_tpu_torch.ops.eigen3 import eigh3x3_descending
 from patchworkpp_tpu_torch.ops.fit_kernel import (
@@ -54,7 +54,7 @@ from patchworkpp_tpu_torch.ops.segments import (
     sort_by_patch,
 )
 from patchworkpp_tpu_torch.ops.tiled import TILE, build_tiled
-from patchworkpp_tpu_torch.ops.tiled_fit import out_layout
+from patchworkpp_tpu_torch.ops.tiled_fit import out_layout, tiled_fit
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 from patchworkpp_tpu_torch.state import BUF_CAP, AdaptiveState
 
@@ -160,9 +160,14 @@ class _PlaneCarry(NamedTuple):
 
 
 class FrameComm:
-    """Cross-shard hooks of the unfused frame. This class is the
-    single-device identity; a point-sharded frame would sum per-patch
-    statistics across shards here."""
+    """Cross-shard hooks of the frame step (JAX ``pipeline.py:162-211``).
+
+    This class is the single-device identity. A point-sharded frame
+    (``parallel/point_sharded.py:MeshComm``) runs the same frame on each
+    shard's rows and combines per-patch statistics here: they are the only
+    state that crosses shards."""
+
+    is_sharded = False
 
     def row_offset(self, n_local: int) -> int:
         """Global row index of this shard's first point."""
@@ -173,11 +178,28 @@ class FrameComm:
         return x
 
     def lpr_stats(self, sp: SortedPoints, elig: torch.Tensor, num_lpr: int):
-        """(sum, count) of each patch's num_lpr lowest eligible z."""
+        """(sum, count) of each patch's num_lpr lowest eligible z (the
+        unfused engine's hook)."""
         rank = segment_rank(elig, sp)
         tf = (elig & (rank < num_lpr)).to(torch.float32)
         sums = patch_reduce(torch.stack([sp.z * tf, tf], dim=1), sp.patch_id, sp.start)
         return sums[:, 0], sums[:, 1]
+
+    def merge_lpr_table(self, z_at_rank, occ, elig_cnt, num_lpr: int):
+        """Merge per-shard dense LPR candidate tables (the tiled engine's
+        hook, ``ops/tiled_fit.py``): (S, num_lpr) z at each local rank slot,
+        its occupancy and the (S,) local eligible count -> the global
+        (lpr_sum, lpr_cnt).
+
+        The identity form, and the contract of a custom comm: the local
+        table is the global candidate set; the occupied slots are summed in
+        rank (ascending z) order, the count clamped to num_lpr. The tiled
+        engine's single-device path computes the same quantities from two
+        columns without the table, so this method is the reference here,
+        not the code that runs."""
+        zero = torch.zeros((), dtype=z_at_rank.dtype, device=z_at_rank.device)
+        return (seq_sum(torch.where(occ > 0.5, z_at_rank, zero)),
+                torch.clamp_max(elig_cnt, float(num_lpr)))
 
 
 def _fit_planes(
@@ -389,12 +411,16 @@ FUSED_MODES = (False, "grid", "grid_iota", "onehot", "tiled")
 
 def make_frame_fn(
     params: Params, geom: CZMGeometry | None = None, device="cuda", fused=None,
+    comm: FrameComm | None = None,
 ):
     """Build the frame step ``fn(state, points, npts) -> (state, FrameResult)``.
 
     ``points`` is a (P, 4) float32 tensor on ``device`` (padded), ``npts``
-    the number of real rows (an int). ``fused`` picks the engine, as in the
-    JAX package (``pipeline.py:367-438``):
+    the number of real rows (an int). With a sharded ``comm``
+    (``parallel/``) the step is the per-shard program: ``points`` are this
+    shard's rows, ``npts`` the global count, the mask covers this shard's
+    rows and every per-patch output is the merged one. ``fused`` picks the
+    engine, as in the JAX package (``pipeline.py:367-438``):
 
     - ``None`` (= ``"tiled"``), ``True`` (= ``"grid"``), ``"grid"``,
       ``"grid_iota"``: the tiled layout and the fit kernel K1
@@ -406,8 +432,18 @@ def make_frame_fn(
       PyTorch ops.
 
     The fit kernels run as CUDA kernels on a CUDA device (the default) and
-    as their plain versions when the caller asks for ``device="cpu"``."""
+    as their plain versions when the caller asks for ``device="cpu"``.
+
+    Under a sharded comm the tiled engine runs the composed fit program,
+    ``ops/tiled_fit.py:tiled_fit``, with the comm's LPR merge and moment
+    reduction between its passes: plain PyTorch ops on either device, not
+    K1, which holds a whole patch in one CTA and has no point at which to
+    meet the other shards. This is the JAX package's own design (its
+    sharded tiled engine is XLA, never Pallas); K1's launch count reads 0 on
+    such frames. The kernel modes raise, in the JAX package's words."""
     p = params
+    comm = comm or FrameComm()
+    sharded = comm.is_sharded
     if fused is None:
         fused = "tiled"
     if fused is True:
@@ -418,6 +454,13 @@ def make_frame_fn(
             "'grid_iota' (in-kernel static prefix triangle), 'tiled' (the "
             "XLA tiled engine — the shardable fused path), or 'onehot' "
             "(the 'scan' variant was removed)"
+        )
+    if sharded and fused not in (False, "tiled"):
+        raise ValueError(
+            f"fused={fused!r} is a single-chip Pallas kernel and cannot run "
+            "under a point-sharded comm; use fused='tiled' (the same tiled "
+            "design composed in XLA so cross-shard collectives interleave "
+            "at pass boundaries) or fused=False"
         )
     geom = geom or CZMGeometry.create(p)
     dev = torch.device(device)
@@ -570,7 +613,7 @@ def make_frame_fn(
 
         result = FrameResult(
             ground_mask=ground,
-            num_ground=torch.sum(ground).to(torch.int32),
+            num_ground=comm.reduce_patches(torch.sum(ground).to(torch.int32)),
             patch_mean=mean[:npz],
             patch_normal=normal[:npz],
             patch_svals=svals[:npz],
@@ -578,18 +621,26 @@ def make_frame_fn(
         )
         return new_state, result
 
+    def _local_npts(points: torch.Tensor, npts: int) -> int:
+        """The real rows among this shard's: the global count less the
+        shard's first row, clamped to [0, rows] (below 0 on the shards
+        past the last real point, above the rows on those before it)."""
+        rows = points.shape[0]
+        return min(max(int(npts) - comm.row_offset(rows), 0), rows)
+
     def fit_inputs(state: AdaptiveState, points: torch.Tensor, npts: int) -> FitInputs:
         """Sanitize, bin and tile one padded cloud: everything the fit
         kernel and the frame's tail read."""
         with record_function("stage_rnr_czm"):
             points = _sanitize_nonfinite(points.to(torch.float32))
-            bins = bin_points(points, npts, state.sensor_height, p, geom)
+            bins = bin_points(points, _local_npts(points, npts), state.sensor_height, p, geom)
         with record_function("stage_sort"):
             tp = build_tiled(
                 points[:, :3], bins.patch_id,
                 counts=factored_patch_counts(bins, geom, spad), width=spad,
             )
-        processed = (tp.counts >= p.num_min_pts) & (sid < npz)
+        counts = comm.reduce_patches(tp.counts)
+        processed = (counts >= p.num_min_pts) & (sid < npz)
         proc_f = processed.to(torch.float32)
 
         nt = tp.xyz.shape[0] // TILE
@@ -612,7 +663,7 @@ def make_frame_fn(
             pad_start=tp.pad_start,
             gates=gates,
             consts=torch.cat([margin_thr.reshape(1), torch.zeros(7, device=dev)]),
-            counts=tp.counts,
+            counts=counts,
             processed=processed,
             points=points,
             patch_id=bins.patch_id,
@@ -623,7 +674,13 @@ def make_frame_fn(
         args = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
                 fi.gates, fi.consts, p)
         with record_function("stage_fused_fit"):
-            if fused == "onehot":
+            if sharded:
+                out = torch.where(
+                    fi.counts[:, None] > 0,
+                    tiled_fit(*args[:7], fi.consts[0], p, comm=comm),
+                    torch.zeros((), device=dev),
+                )
+            elif fused == "onehot":
                 # K2's table is not masked by counts (pipeline.py:809-815)
                 out = fused_fit(*args)
             else:
@@ -660,11 +717,9 @@ def make_frame_fn(
 
     def frame(state: AdaptiveState, points: torch.Tensor, npts: int):
         """The unfused engine (JAX pipeline.py:638-743)."""
-        comm = FrameComm()
         with record_function("stage_rnr_czm"):
             points = _sanitize_nonfinite(points.to(torch.float32))
-            npts = npts - comm.row_offset(points.shape[0])
-            bins = bin_points(points, npts, state.sensor_height, p, geom)
+            bins = bin_points(points, _local_npts(points, npts), state.sensor_height, p, geom)
         pid_o = bins.patch_id
         with record_function("stage_sort"):
             sp = sort_by_patch(points[:, 0], points[:, 1], points[:, 2], pid_o, spad)
@@ -743,13 +798,20 @@ def make_frame_fn(
 
 def make_sequence_fn(
     params: Params, geom: CZMGeometry | None = None, device="cuda", fused=None,
+    comm: FrameComm | None = None,
 ):
     """Build ``fn(state, stack, npts) -> (state, FrameResult)`` over a
-    (B, P, 4) stack of scans: the frame step (engine ``fused``, as in
-    :func:`make_frame_fn`) in order, the adaptive state threaded from each
-    frame to the next, every FrameResult field stacked on a leading B axis.
-    A frame loop; capturing it as a CUDA graph is later work."""
-    frame = make_frame_fn(params, geom, device, fused)
+    (B, P, 4) stack of scans: the frame step (engine ``fused`` and ``comm``,
+    as in :func:`make_frame_fn`) in order, the adaptive state threaded from
+    each frame to the next, every FrameResult field stacked on a leading B
+    axis. A frame loop; capturing it as a CUDA graph is later work."""
+    return sequence_of(make_frame_fn(params, geom, device, fused, comm))
+
+
+def sequence_of(frame):
+    """The state-chained loop of a frame step ``frame(state, points, npts)``
+    over a (B, P, 4) stack: ``fn(state, stack, npts) -> (state,
+    FrameResult)`` with every field stacked on a leading B axis."""
 
     def sequence(state: AdaptiveState, stack: torch.Tensor, npts: List[int]):
         results = []

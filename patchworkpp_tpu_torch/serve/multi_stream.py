@@ -25,7 +25,7 @@ class MultiStreamSegmenter:
     Each stream id owns its own :class:`AdaptiveState` (thresholds, FIFO
     buffers, self-calibrated sensor height), exactly as N reference engine
     instances would. ``device`` is "cuda" unless the caller asks for "cpu";
-    ``chunks`` > 1 is not ported yet and raises.
+    ``chunks`` > 1 runs each frame chunked (``PatchworkPP(chunks=...)``).
     """
 
     def __init__(

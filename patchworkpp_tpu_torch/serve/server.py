@@ -87,9 +87,8 @@ class ServerConfig:
     # the per-frame loop, one readback for the batch). Only the exact size
     # batch_max is ever batched. 1 disables batching (live/low-latency mode).
     batch_max: int = 1
-    # The JAX package's chunked single-device frame; not ported yet (ROADMAP
-    # queue 1, item 13, multi-device), so any value but 1 makes the engine
-    # raise.
+    # K > 1: each frame as K row blocks of the device (parallel/chunked.py,
+    # PatchworkPP(chunks=K)); the capacity must be a multiple of K.
     chunks: int = 1
 
     def __post_init__(self) -> None:

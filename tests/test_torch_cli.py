@@ -89,10 +89,18 @@ def test_bench_timed_groups_split_and_sync():
 
 
 def test_bench_refuses_chunks_and_names_metrics():
-    with pytest.raises(SystemExit, match="item 13"):
-        bench.main(["--chunks", "2"])
+    """--chunks is refused outside the single-stream epoch run and on a
+    capacity it does not divide, as in the JAX bench, and names the metric
+    ``_c{K}``."""
+    with pytest.raises(SystemExit, match="single-stream"):
+        bench.main(["--chunks", "2", "--streams", "2"])
+    with pytest.raises(SystemExit, match="single-stream"):
+        bench.main(["--chunks", "2", "--dispatch", "frame"])
+    with pytest.raises(SystemExit, match="not divisible"):
+        bench.main(["--chunks", "3", "--capacity", "8192"])
     args = bench.parse_args(["--densify", "2", "--fused", "onehot"])
     assert bench._name(args, "kitti6") == "kitti6_x2_onehot"
+    assert bench._name(bench.parse_args(["--chunks", "2"]), "synth6") == "synth6_c2"
     assert bench._vs_baseline(bench.parse_args([]), "kitti6", 59.6) == pytest.approx(2.0)
     assert bench._vs_baseline(bench.parse_args([]), "synth6", 59.6) is None
     stack, npts = bench.build_stack([np.ones((5, 3), np.float32)], 2, 16)

@@ -166,11 +166,19 @@ def test_verbose_print_uses_packed_count(capsys):
 
 
 def test_chunks_switch():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PatchworkPP(device="cpu", chunks=2)
+    """chunks=K keeps the JAX facade's capacity rule: the automatic
+    capacity rounds up to a multiple of lcm(8192, K), a fixed one that K
+    does not divide raises; chunks < 1 raises. (The chunked frame's labels:
+    tests/test_torch_chunked.py.)"""
     with pytest.raises(ValueError, match="chunks"):
         PatchworkPP(device="cpu", chunks=0)
     assert PatchworkPP(device="cpu", chunks=1).device.type == "cpu"
+    m = PatchworkPP(device="cpu", chunks=3)
+    assert m._capacity(100) == 24576 and m._capacity(30000) == 49152
+    assert PatchworkPP(device="cpu", chunks=2)._capacity(100) == 8192
+    with pytest.raises(ValueError, match="not divisible"):
+        PatchworkPP(capacity=1000, chunks=3, device="cpu").estimate_ground(
+            np.zeros((10, 4), np.float32))
 
 
 def test_profile_stages_on_cpu(capsys):

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of patchworkpp_tpu_torch, and
-neither chip_smoke.py nor scripts/gpu_parity.py, imports jax or the JAX package (checked on the source with
-the ast module, since importing would pull in whatever the interpreter has
-already loaded)."""
+neither chip_smoke.py nor scripts/gpu_parity.py nor
+scripts/torch_multiproc_parity.py, imports jax or the JAX package (checked
+on the source with the ast module, since importing would pull in whatever
+the interpreter has already loaded)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "patchworkpp_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "gpu_parity.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "gpu_parity.py",
+    ROOT / "scripts" / "torch_multiproc_parity.py"]
 
 
 def _imported_modules(path: Path):
@@ -67,11 +69,17 @@ def test_port_has_the_expected_files():
         "patchworkpp_tpu_torch/io/native_loader.py",
         "patchworkpp_tpu_torch/oracle/__init__.py",
         "patchworkpp_tpu_torch/oracle/numpy_oracle.py",
+        "patchworkpp_tpu_torch/parallel/__init__.py",
+        "patchworkpp_tpu_torch/parallel/point_sharded.py",
+        "patchworkpp_tpu_torch/parallel/chunked.py",
+        "patchworkpp_tpu_torch/parallel/sharded.py",
+        "patchworkpp_tpu_torch/parallel/selfcheck.py",
         "chip_smoke.py",
         "scripts/gpu_parity.py",
+        "scripts/torch_multiproc_parity.py",
     ):
         assert want in names
-    for src in ("fit_grid.cu", "fit_onehot.cu", "fit_program.cuh", "fit_math.cuh"):
+    for src in ("fit_grid.cu", "fit_onehot.cu", "fit_program.cuh", "fit_math.cuh", "loader.cpp"):
         assert (ROOT / "patchworkpp_tpu_torch" / "csrc" / src).exists()
     assert (ROOT / "patchworkpp_tpu_torch" / "serve" / "rviz" / "patchworkpp.rviz").exists()
 

@@ -1,15 +1,20 @@
 """The port's native prefetching loader (io/native_loader.py over
-native/loader.cpp, built at first use with g++): the five cases of
+csrc/loader.cpp, built at first use with g++): the five cases of
 tests/test_native_loader.py (order, loop mode, a missing file, truncation,
 a scan of exactly the capacity) on synthetic ``.bin`` files, each staged
-buffer held against the port's ``read_bin`` + ``pad_cloud``; a long
-looping run that several workers would wedge; and the streaming bench's
-native path. Skips only where g++ is absent.
+buffer held against the port's ``read_bin`` + ``pad_cloud``; long looping
+runs on the schedule that wedges the JAX package's native/loader.cpp with
+several workers; and the streaming bench's native path. Skips only where
+g++ is absent.
 """
 
 from __future__ import annotations
 
 import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -51,9 +56,8 @@ def test_ordered_iteration_matches_numpy(paths):
 
 
 def test_long_loop_does_not_wedge(paths):
-    """Many short looping runs with a slow consumer: the schedule on which
-    native/loader.cpp deadlocks with three workers (each run here ends in
-    well under a second with the port's one worker)."""
+    """Many short looping runs with a slow consumer and the default two
+    workers: each run ends in well under a second."""
     import time
 
     for _ in range(10):
@@ -63,6 +67,32 @@ def test_long_loop_does_not_wedge(paths):
                 time.sleep(0.001)
                 if i == 40:
                     break
+
+
+def test_three_workers_do_not_deadlock(paths):
+    """The schedule on which native/loader.cpp deadlocks (a worker claims
+    its scan index before it holds a free slot): 3 workers, 4 slots, loop
+    mode, a consumer that takes 2 ms a scan, 20 runs. It runs in its own
+    process under a timeout, so a hang fails the test instead of the suite."""
+    root = Path(__file__).resolve().parent.parent
+    code = textwrap.dedent(f"""
+        import sys, time
+        sys.path.insert(0, {str(root)!r})
+        from patchworkpp_tpu_torch.io import NativeScanLoader
+        for run in range(20):
+            with NativeScanLoader({paths!r}, capacity={CAP}, queue_depth=4,
+                                  n_threads=3, loop=True) as ld:
+                for i, (_, _, idx) in enumerate(ld):
+                    assert idx == i, (run, i, idx)
+                    time.sleep(0.002)
+                    if i == 40:
+                        break
+        print("runs 20")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["runs", "20"]
 
 
 def test_loop_mode_wraps(paths):
