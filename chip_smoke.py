@@ -3,11 +3,12 @@
 
 Phases, in order; any failure raises and exits nonzero before the last line:
 
-1. print the card (nvidia-smi name, power limit) and build the two CUDA fit
-   kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu and K2 from
+1. print the card (nvidia-smi name, power limit) and build the three CUDA
+   fit kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu, K2 from
    csrc/fit_onehot.cu (both the fit program of csrc/fit_program.cuh, with
-   their own per-patch sums), with one nvcc each started together (build
-   time, ptxas reports);
+   their own per-patch sums) and KS, the sharded fit, from
+   csrc/fit_sharded.cu (the same program cut at its cross-shard points),
+   with one nvcc each started together (build time, ptxas reports);
 2. make a synthetic KITTI-scale scan from --seed (io/synthetic.py: 64
    beams over 360 deg, a tilted noisy ground plane, walls, boxes, reflected
    noise below ground, points out of range);
@@ -18,6 +19,13 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    on a cloud whose processed patches hold one tile each; K1 also on a
    small cloud with num_iter=4 (K2 refuses it); on each cloud K2's integer
    columns must equal K1's;
+3b. hold KS against its plain version, tiled_fit(comm=...), on the card:
+   the scan and the crowded-patch cloud at capacity 131072 as 2 and as 4
+   chunks of the in-process transport (parallel/chunked.py), every chunk's
+   table bit for bit, KS launching its stated count (12) a chunk; chunk 0's
+   launches of the 2-chunk run are recorded and replayed back to back (the
+   kernel time) and through the plain phases (which must give the same
+   table);
 4. drive the main paths through PatchworkPP(...).estimate_ground over
    --frames state-chained frames: the default engine (K1) and
    fused="onehot" (K2), each with every launch count set to 0 just before
@@ -58,20 +66,22 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the same frames and first-epoch labels, their scans/s printed;
 4d. the multi-device layer (patchworkpp_tpu_torch/parallel/), on
    make_scan(seed, 0..2) chained at capacity 131072: PatchworkPP(chunks=2)
-   on the card (the composed fit program, so K1 and K2 launch 0 times)
-   equal to the CPU chunked path bit for bit and its labels equal to the
-   card's K1 frame (a chunks=1 control launches K1 once a frame); the
-   chunked frame timed with CUDA events; then two gloo ranks, both on this
-   card, in their own processes under a timeout: the point-sharded frame
-   equal to the card's chunks=2 frame bit for bit (every FrameResult field
-   and the state, K1 not launched) and two frame-parallel streams, one per
-   rank, each equal to its own facade, with K1 launched once per frame per
-   rank; the 2-rank frame time on the host clock;
-5. time both kernels (also on the crowded-patch cloud), their plain
+   on the card (KS 12 launches a chunk a frame, K1 and K2 none, the plain
+   tiled_fit never called) equal to the CPU chunked path bit for bit and
+   its labels equal to the card's K1 frame (a chunks=1 control launches K1
+   once a frame and nothing else); the chunked frame timed with CUDA
+   events; then two gloo ranks, both on this card, in their own processes
+   under a timeout: the point-sharded frame equal to the card's chunks=2
+   frame bit for bit (every FrameResult field and the state; KS 12
+   launches a rank a frame, nothing else) and two frame-parallel streams,
+   one per rank, each equal to its own facade, with K1 launched once per
+   frame per rank; the 2-rank frame time on the host clock;
+5. time the three kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
-   after warm-up; print K1's time per walk of
-   the largest patch over its tiles (kernel ms / (tiles x walks)) and the
-   kernels JSON line;
+   after warm-up (KS: chunk 0's 12 recorded launches replayed, and the fit
+   stage of a chunks=2 frame, KS against tiled_fit(comm)); print K1's time
+   per walk of the largest patch over its tiles (kernel ms / (tiles x
+   walks)) and the kernels JSON line;
 6. print {"ok": true, "device": {...}} as the last line.
 
 With --profile, a torch.profiler window over a few frames of each engine
@@ -170,6 +180,134 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         fn()
     b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bitwise(a, b) -> bool:
+    """Two float tables equal bit for bit (-0.0 and 0.0 differ; NaNs with
+    the same bits agree)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+class PhaseRecorder:
+    """A sharded fit's phases (ops/sharded_fit.py) that keep each launch's
+    inputs, so that one shard's launches can be run again back to back
+    (``replay``), without the comm between them: KS's time per shard and
+    frame, and its plain phases' on the same inputs."""
+
+    def __init__(self, phases):
+        self.phases, self.calls = phases, []
+
+    def seed(self, i, mom):
+        self.calls.append(("seed", (i, mom)))
+        return self.phases.seed(i, mom)
+
+    def moments(self, i, mom, lpr_sum, cnt):
+        self.calls.append(("moments", (i, mom, lpr_sum, cnt)))
+        return self.phases.moments(i, mom, lpr_sum, cnt)
+
+    def finish(self, mom):
+        self.calls.append(("finish", (mom,)))
+        return self.phases.finish(mom)
+
+    def replay(self, phases):
+        out = None
+        for name, args in self.calls:
+            out = getattr(phases, name)(*args)
+        return out
+
+
+def sharded_fit_phase(p, cloud, label, device="cuda") -> dict:
+    """Phase 3b: KS (ops/sharded_fit.py) against the plain sharded fit,
+    ``tiled_fit(comm=...)``, on the card: ``cloud`` at capacity 131072 as 2
+    and as 4 chunks of the in-process transport, every chunk's table bit
+    for bit, KS launching its stated count a chunk. Returns chunk 0's
+    recorded launches at 2 chunks (for the timing) and the checks' numbers."""
+    import torch
+
+    from patchworkpp_tpu_torch.ops import sharded_fit as sf
+    from patchworkpp_tpu_torch.ops.tiled_fit import FitProgram, tiled_fit
+    from patchworkpp_tpu_torch.parallel.chunked import _chunk_fit_tables
+
+    dev = torch.device(device)
+    x = torch.zeros((CAPACITY, 4), device=dev)
+    x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
+    per_chunk = sf.launches_per_frame(p)
+
+    def kernel(fi, comm):
+        return sf.sharded_fit(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
+                              fi.gates, fi.consts, p, comm)
+
+    def plain(fi, comm):
+        return tiled_fit(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
+                         fi.gates, fi.consts[0], p, comm=comm)
+
+    def recorded(fi, comm):
+        rec = PhaseRecorder(sf._Kernel(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.pad_start,
+                                       fi.gates, fi.consts, p))
+        return fi, rec, sf._drive(rec, p, comm).clone()
+
+    out = {"launches_per_chunk": per_chunk}
+    max_err = 0.0
+    for k in (2, 4):
+        before = sf.sharded_fit.launches
+        tables = _chunk_fit_tables(p, k, x, len(cloud), [kernel, plain], device=dev)
+        torch.cuda.synchronize()
+        launched = sf.sharded_fit.launches - before
+        if launched != k * per_chunk:
+            raise AssertionError(f"KS {label} chunks={k}: {launched} launches, "
+                                 f"expected {k} x {per_chunk}")
+        for c, (got, want) in enumerate(tables):
+            max_err = max(max_err, compare_tables(
+                got, want, p, f"KS vs plain (card), {label}, chunks={k}, chunk {c}"))
+            if not bitwise(got, want):
+                raise AssertionError(f"KS {label} chunks={k} chunk {c}: not bit for bit")
+    out["max_abs_err"] = max_err
+    fi, rec, table = _chunk_fit_tables(p, 2, x, len(cloud), [recorded], device=dev)[0][0]
+    if not bitwise(rec.replay(sf._Kernel(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.pad_start,
+                                         fi.gates, fi.consts, p)), table):
+        raise AssertionError(f"KS {label}: the replayed launches differ from the run")
+    plain_again = rec.replay(sf._Reference(FitProgram(
+        fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
+        fi.consts[0], p)))
+    if not bitwise(plain_again, table):
+        raise AssertionError(f"KS {label}: the plain phases on the recorded inputs differ")
+    tiles = ((fi.pad_start[1:] - fi.pad_start[:-1]) // 128)[fi.gates[:, 0] > 0.5]
+    out.update(chunk0_processed_tiles=int(tiles.sum()), chunk0_largest_tiles=int(tiles.max()))
+    print(f"KS {label}: chunks=2 and 4 == tiled_fit(comm) on the card bit for bit, "
+          f"{per_chunk} launches a chunk; chunk 0 of 2: {out['chunk0_processed_tiles']} "
+          f"processed tiles, largest patch {out['chunk0_largest_tiles']}")
+    return {"record": (fi, rec), **out}
+
+
+def sharded_stage_ms(p, cloud, fit, reps, device="cuda") -> float:
+    """The fit stage of a chunks=2 frame on CUDA events: from chunk 0's
+    second call of ``fit(fit_inputs, comm)`` to the end of chunk 1's last,
+    per call (the chunks' launches and the comm's steps between them, at
+    the host's pace)."""
+    import torch
+
+    from patchworkpp_tpu_torch.parallel.chunked import _chunk_fit_tables
+
+    dev = torch.device(device)
+    x = torch.zeros((CAPACITY, 4), device=dev)
+    x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fi, comm):
+        i = comm.transport.index
+        for r in range(reps + 1):
+            if r == 1 and i == 0:
+                a.record()
+            fit(fi, comm)
+        if i == 1:
+            b.record()
+
+    _chunk_fit_tables(p, 2, x, len(cloud), [timed], device=dev)
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
 
@@ -621,11 +759,21 @@ def _multi_device_rank(rank: int, nprocs: int, cfg: dict) -> None:
     from patchworkpp_tpu_torch.io.synthetic import make_scan
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.ops import sharded_fit as sf
+    from patchworkpp_tpu_torch.ops import tiled_fit as tf
     from patchworkpp_tpu_torch.parallel import (
         batch_init_state,
         make_batch_frame_fn,
         make_point_sharded_frame_fn,
     )
+
+    def zero_counts():
+        fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+        sf.sharded_fit.launches = tf.tiled_fit.calls = 0
+
+    def counts():  # K1, K2 and KS launches, plain sharded fit calls
+        return np.array([fkg.fused_fit_grid.launches, fk.fused_fit.launches,
+                         sf.sharded_fit.launches, tf.tiled_fit.calls])
 
     dev = torch.device(cfg["device"])
     if dev.type == "cuda":
@@ -644,7 +792,7 @@ def _multi_device_rank(rank: int, nprocs: int, cfg: dict) -> None:
     frame(init_state(p, dev), *scans[0][0])  # warm-up
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
-    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    zero_counts()
     st = init_state(p, dev)
     host_ms = []
     for f, (x, n) in enumerate(scans[0]):
@@ -654,19 +802,19 @@ def _multi_device_rank(rank: int, nprocs: int, cfg: dict) -> None:
         host_ms.append((time.perf_counter() - t0) * 1e3)
         out.update({f"ps{f}_{k}": getattr(res, k).cpu().numpy() for k in res._fields})
     out.update({f"ps_state_{k}": v for k, v in st.to_numpy().items()})
-    out["ps_launches"] = np.array([fkg.fused_fit_grid.launches, fk.fused_fit.launches])
+    out["ps_launches"] = counts()
     out["ps_host_ms"] = np.array(host_ms)
 
     batch = make_batch_frame_fn(p, device=dev)
     states = batch_init_state(p, nprocs, dev)
-    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    zero_counts()
     for f in range(MULTI_FRAMES):
         states, res = batch(states, torch.stack([scans[b][f][0] for b in range(nprocs)]),
                             [scans[b][f][1] for b in range(nprocs)])
         for b in range(nprocs):
             out[f"fp{f}_{b}_ground_mask"] = res.ground_mask[b].cpu().numpy()
     out.update({f"fp_state_{k}": v for k, v in states.to_numpy().items()})
-    out["fp_launches"] = np.array([fkg.fused_fit_grid.launches, fk.fused_fit.launches])
+    out["fp_launches"] = counts()
     np.savez(os.path.join(cfg["out"], f"rank{rank}.npz"), **out)
 
 
@@ -681,6 +829,8 @@ def multi_device_phase(seed, device="cuda") -> dict:
     from patchworkpp_tpu_torch.io.synthetic import make_scan
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.ops import sharded_fit as sf
+    from patchworkpp_tpu_torch.ops import tiled_fit as tf
     from patchworkpp_tpu_torch.parallel import make_chunked_frame_fn
     from patchworkpp_tpu_torch.parallel.selfcheck import spawn
 
@@ -688,11 +838,17 @@ def multi_device_phase(seed, device="cuda") -> dict:
     dev = torch.device(device)
     per_frame = int(dev.type == "cuda")  # the CPU runs the plain fit
     p = Params()
+    ks = per_frame * sf.launches_per_frame(p)  # KS launches a shard a frame
     scans = [make_scan(seed, f) for f in range(MULTI_FRAMES)]
     out = {}
 
+    def zero_counts():
+        fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+        sf.sharded_fit.launches = tf.tiled_fit.calls = 0
+
     def counts():
-        return {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches}
+        return {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches,
+                "fit_sharded": sf.sharded_fit.launches, "tiled_fit_calls": tf.tiled_fit.calls}
 
     def run(model, chain):
         return [model.estimate_ground(s) for s in chain], model.state.to_numpy()
@@ -707,20 +863,25 @@ def multi_device_phase(seed, device="cuda") -> dict:
             if not np.array_equal(sa[k], sb[k]):
                 raise AssertionError(f"{label}: state {k} differs")
 
-    # a. the facade, chunks=2, on the card: no K1 launch (the composed fit);
-    # equal to the CPU chunked path bit for bit; labels equal to the card's
-    # K1 frame, whose control run launches K1 once a frame
-    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
-    chunked = run(PatchworkPP(p, capacity=CAPACITY, device=dev, chunks=2), scans)
+    # a. the facade, chunks=2, on the card: KS launches its count a chunk a
+    # frame, K1 and K2 none, the plain sharded fit is never called; equal to
+    # the CPU chunked path bit for bit; labels equal to the card's K1
+    # frame, whose control run launches K1 once a frame
+    model = PatchworkPP(p, capacity=CAPACITY, device=dev, chunks=2)
+    zero_counts()
+    chunked = run(model, scans)
     out["chunked_launches"] = counts()
-    if any(out["chunked_launches"].values()):
-        raise AssertionError(f"chunks=2 launched a fit kernel: {out['chunked_launches']}")
+    want = {"fit_grid": 0, "fit_onehot": 0, "fit_sharded": 2 * ks * MULTI_FRAMES,
+            "tiled_fit_calls": 0}
+    if out["chunked_launches"] != want:
+        raise AssertionError(f"chunks=2: launches {out['chunked_launches']}, expected {want}")
     same(chunked, run(PatchworkPP(p, capacity=CAPACITY, device="cpu", chunks=2), scans),
          "chunks=2 card vs cpu")
-    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    zero_counts()
     plain = run(PatchworkPP(p, capacity=CAPACITY, device=dev), scans)
     out["control_launches"] = counts()
-    if out["control_launches"] != {"fit_grid": per_frame * MULTI_FRAMES, "fit_onehot": 0}:
+    if out["control_launches"] != {"fit_grid": per_frame * MULTI_FRAMES, "fit_onehot": 0,
+                                   "fit_sharded": 0, "tiled_fit_calls": 0}:
         raise AssertionError(f"chunks=1 control: launches {out['control_launches']}")
     for i, (a, b) in enumerate(zip(chunked[0], plain[0])):
         if not np.array_equal(a.ground_mask, b.ground_mask):
@@ -769,11 +930,13 @@ def multi_device_phase(seed, device="cuda") -> dict:
         for k, v in ref_state.items():
             if not np.array_equal(got[f"ps_state_{k}"], v):
                 raise AssertionError(f"rank {r} point-sharded: state {k} differs")
-        if got["ps_launches"].tolist() != [0, 0]:
-            raise AssertionError(f"rank {r}: point-sharded launched {got['ps_launches']}")
-        if got["fp_launches"].tolist() != [per_frame * MULTI_FRAMES, 0]:
+        if got["ps_launches"].tolist() != [0, 0, ks * MULTI_FRAMES, 0]:
+            raise AssertionError(f"rank {r}: point-sharded launches (K1, K2, KS, plain "
+                                 f"calls) {got['ps_launches']}, expected KS "
+                                 f"{ks * MULTI_FRAMES} and no other")
+        if got["fp_launches"].tolist() != [per_frame * MULTI_FRAMES, 0, 0, 0]:
             raise AssertionError(f"rank {r}: frame-parallel launches {got['fp_launches']}, "
-                                 f"expected K1 {MULTI_FRAMES} (once a frame) and K2 0")
+                                 f"expected K1 {MULTI_FRAMES} (once a frame) and no other")
     # frame-parallel stream b == its own facade (stream 0's is the K1 control)
     facades = [plain, run(PatchworkPP(p, capacity=CAPACITY, device=dev),
                           [make_scan(seed + 1, f) for f in range(MULTI_FRAMES)])]
@@ -787,11 +950,13 @@ def multi_device_phase(seed, device="cuda") -> dict:
             if not np.array_equal(ranks[0][f"fp_state_{k}"][b], v):
                 raise AssertionError(f"frame-parallel stream {b}: state {k} differs")
     out["two_rank_frame_ms_each"] = ranks[0]["ps_host_ms"].tolist()
+    out["two_rank_launches"] = ranks[0]["ps_launches"].tolist()
     out["chunked_frame_ms"] = float(np.median(chunk_ms)) if chunk_ms else None
     out["two_rank_frame_ms"] = float(np.median(out["two_rank_frame_ms_each"]))
     print(f"2 gloo ranks on the card: point-sharded == chunks=2 bit for bit "
-          f"({MULTI_FRAMES} frames, every field and the state), K1 launches 0; "
-          f"frame-parallel, 2 streams == their facades, K1 {per_frame * MULTI_FRAMES} a rank")
+          f"({MULTI_FRAMES} frames, every field and the state), KS {ks * MULTI_FRAMES} "
+          f"launches a rank, K1 and K2 0, plain sharded fit 0 calls; frame-parallel, 2 "
+          f"streams == their facades, K1 {per_frame * MULTI_FRAMES} a rank")
     print(f"chunks=2 frame median {out['chunked_frame_ms']} ms (CUDA events) "
           f"{[round(t, 3) for t in chunk_ms]}; 2-rank point-sharded frame median "
           f"{out['two_rank_frame_ms']:.3f} ms (host clock, rank 0) "
@@ -828,7 +993,8 @@ def main() -> int:
     )
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
-    from patchworkpp_tpu_torch.ops.tiled_fit import tiled_fit
+    from patchworkpp_tpu_torch.ops import sharded_fit as sf
+    from patchworkpp_tpu_torch.ops.tiled_fit import FitProgram, tiled_fit
     from patchworkpp_tpu_torch.pipeline import make_frame_fn
 
     pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(patchworkpp_tpu_torch.__file__)))
@@ -843,13 +1009,13 @@ def main() -> int:
     # ---- 1. card and build (one nvcc per source, started together)
     print(f"card: {card}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(fkg.build), pool.submit(fk.build)]:
+    with ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(fkg.build), pool.submit(fk.build), pool.submit(sf.build)]:
             fut.result()
     build_s = time.perf_counter() - t0
-    print(f"fit kernels build (K1 and K2 in parallel): {build_s:.2f} s")
-    print(fkg.build_log().strip())
-    print(fk.build_log().strip())
+    print(f"fit kernels build (K1, K2 and KS in parallel): {build_s:.2f} s")
+    for module in (fkg, fk, sf):
+        print(module.build_log().strip())
 
     # ---- 2. scan
     p = Params()
@@ -927,6 +1093,13 @@ def main() -> int:
     check_k2(fi_crowd, k1_crowd, "crowded patch")
     check_k2(fi_one, k1_one, "one-tile patches")
 
+    # ---- 3b. KS vs the plain sharded fit on the card, chunks=2 and 4
+    ks_main = sharded_fit_phase(p, scans[0], "main scan")
+    ks_crowd = sharded_fit_phase(p, make_crowded_scan(args.seed), "crowded patch")
+    if ks_crowd["chunk0_largest_tiles"] <= fkg.CAP_TILES:
+        raise AssertionError("crowded cloud: chunk 0's largest patch is not over the "
+                             f"{fkg.CAP_TILES}-tile cap")
+
     # ---- 4. main paths on the card vs the CPU path
     def drive(fused, frames, want):
         """``frames`` chained frames of engine ``fused`` on the card and
@@ -999,6 +1172,26 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: tiled_fit(*fit_args[:7], fi.consts[0], p), reps=5)
     k2_ms = cuda_ms(lambda: fk.fused_fit(*fit_args, p), reps=50)
     k2_plain_ms = cuda_ms(lambda: fk.fused_fit_reference(*fit_args, p), reps=3, warmup=1)
+    # KS: chunk 0's launches of a chunks=2 frame, back to back on their
+    # recorded inputs; its plain phases on the same; the fit stage of the
+    # frame (both chunks, the comm between) for KS and the plain program
+    ks_fi, ks_rec = ks_main["record"]
+    ks_ms = cuda_ms(lambda: ks_rec.replay(sf._Kernel(
+        ks_fi.xs, ks_fi.ys, ks_fi.zs, ks_fi.valid_f, ks_fi.pad_start, ks_fi.gates,
+        ks_fi.consts, p)), reps=50)
+    ks_plain_ms = cuda_ms(lambda: ks_rec.replay(sf._Reference(FitProgram(
+        ks_fi.xs, ks_fi.ys, ks_fi.zs, ks_fi.valid_f, ks_fi.tile_patch, ks_fi.pad_start,
+        ks_fi.gates, ks_fi.consts[0], p))), reps=3, warmup=1)
+    fi_c, rec_c = ks_crowd["record"]
+    ks_crowd_ms = cuda_ms(lambda: rec_c.replay(sf._Kernel(
+        fi_c.xs, fi_c.ys, fi_c.zs, fi_c.valid_f, fi_c.pad_start, fi_c.gates, fi_c.consts,
+        p)), reps=20)
+    ks_stage_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: sf.sharded_fit(
+        fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates, fi.consts,
+        p, comm), reps=20)
+    plain_stage_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: tiled_fit(
+        fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
+        fi.consts[0], p, comm=comm), reps=3)
     xs_dev = []
     for s in scans:
         x = torch.zeros((CAPACITY, 4), device=dev)
@@ -1054,6 +1247,27 @@ def main() -> int:
           f"unfused frame median {frame_unf_ms:.3f} ms (CUDA events)")
 
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+
+    # KS's bound, chunk 0 of 2 on the main scan: its processed tiles' rows,
+    # pad_start, gates, consts read once; each launch's table from the comm
+    # read (the reduced moments at 7 pass ends, the merged LPR sum and count
+    # at 4 SEEDFIT passes) and its own table written (4 LPR tables, 7
+    # moment tables, the fit table)
+    n_seed = int((kind == fkg.K_SEEDFIT).sum())
+    ks_rows = 128 * ks_main["chunk0_processed_tiles"]
+    ks_tables = (n_seed * spad * (2 * p.num_lpr + 1 + 2) + 2 * npasses * 10 * spad
+                 + spad * cols)
+    ks_bytes = ks_rows * 16 + 4 * (spad + 1) + 32 * spad + 32 + 4 * ks_tables
+    ks_ops = ks_rows * npasses * FIT_OPS_PER_ROW_PASS
+    ks_t_bytes, ks_t_ops = ks_bytes / H100_BYTES_PER_S, ks_ops / H100_F32_FLOPS
+    ks_bound_ms = max(ks_t_bytes, ks_t_ops) * 1e3
+    print(f"KS {ks_ms:.4f} ms a shard a frame ({sf.launches_per_frame(p)} launches, chunk 0 "
+          f"of 2, replayed), plain phases on the card {ks_plain_ms:.3f} ms, bound "
+          f"{ks_bound_ms:.5f} ms ({ks_bytes} B, {ks_ops} ops), crowded-patch cloud "
+          f"{ks_crowd_ms:.4f} ms; fit stage of a chunks=2 frame (CUDA events, both chunks "
+          f"and the comm): KS {ks_stage_ms:.3f} ms, plain tiled_fit(comm) "
+          f"{plain_stage_ms:.3f} ms; chunks=2 frame median {multi['chunked_frame_ms']:.3f} "
+          f"ms, 2-rank frame median {multi['two_rank_frame_ms']:.3f} ms; {card}")
     kernels = {"kernels": [{
         "name": "fit_grid",
         "route": "cuda",
@@ -1079,6 +1293,20 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "fit_sharded",
+        "route": "cuda",
+        "source": "patchworkpp_tpu_torch/csrc/fit_sharded.cu",
+        "replaces": "patchworkpp_tpu/ops/tiled_fit.py:254",
+        "launches": multi["chunked_launches"]["fit_sharded"],
+        "max_abs_err": max(ks_main["max_abs_err"], ks_crowd["max_abs_err"]),
+        "ms": ks_ms,
+        "plain_ms": ks_plain_ms,
+        "bound_ms": ks_bound_ms,
+        "bound_by": "bytes" if ks_t_bytes >= ks_t_ops else "operations",
+        "library_ms": None,
+        "stage_ms": ks_stage_ms,
+        "plain_stage_ms": plain_stage_ms,
     }]}
     record = {
         "card": card, "build_s": build_s, "frame_ms": frame_ms,
@@ -1090,6 +1318,8 @@ def main() -> int:
         "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
         "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
         "k1_k2_max_abs_diff": k1k2_err, "serving": serving,
+        "ks_crowded_ms": ks_crowd_ms,
+        "ks_checks": {k: v for k, v in ks_main.items() if k != "record"},
         "references": references, "multi_device": multi, **kernels,
     }
     if args.profile:

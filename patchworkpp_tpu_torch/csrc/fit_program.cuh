@@ -256,6 +256,135 @@ __device__ __forceinline__ void window_moments(const float* px, const float* py,
   }
 }
 
+// The dynamic shared memory of one CTA: x, y, z rows of up to kCapTiles
+// tiles, the active and eligible bits, the eligible counts (then priors),
+// the tile sums' parts.
+struct Smem {
+  float* rows;
+  uint32_t* mask;
+  uint32_t* elig;
+  int* cnt;
+  float* part;
+};
+
+__device__ __forceinline__ Smem smem_layout(unsigned char* smem) {
+  Smem s;
+  s.rows = reinterpret_cast<float*>(smem);
+  s.mask = reinterpret_cast<uint32_t*>(s.rows + 3 * kRowFloats);
+  s.elig = s.mask + 4 * kCapTiles;
+  s.cnt = reinterpret_cast<int*>(s.elig + 4 * kCapTiles);
+  s.part = reinterpret_cast<float*>(s.cnt + kCapTiles);
+  return s;
+}
+
+// A SEEDFIT pass's first walk over n staged tiles (tile j0 + jj of the
+// patch at chunk row jj), lane = row: the peel by snapshot (gate sg,
+// plane snx, sny, snz, sd) where do_peel, then each tile's eligible bits
+// (s.elig) and count (s.cnt). The caller ends it with a block barrier.
+__device__ __forceinline__ void seed_count_walk(const Args& a, const Smem& s, uint32_t* mk,
+                                                int j0, int n, bool do_peel, float sg,
+                                                float snx, float sny, float snz, float sd,
+                                                bool zone0, float margin) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* sx_ = s.rows;
+  const float* sy_ = s.rows + kRowFloats;
+  const float* sz_ = s.rows + 2 * kRowFloats;
+  for (int jj = warp; jj < n; jj += kWarps) {
+    const int j = j0 + jj;
+    const uint4 w = *reinterpret_cast<const uint4*>(mk + j * 4);
+    const uint32_t wk[4] = {w.x, w.y, w.z, w.w};
+    uint32_t nb[4] = {0u, 0u, 0u, 0u}, eb[4];
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = srow(jj, lane + 32 * k);
+      float act = bit_f(wk[k], lane);
+      const float z = sz_[i];
+      if (do_peel) {
+        const float dist = plane_dist(sx_[i], sy_[i], z, snx, sny, snz, sd);
+        const float hit = (sg > 0.5f && fabsf(dist) < a.th_dist_v) ? 1.0f : 0.0f;
+        act = act * (1.0f - hit);
+        nb[k] = __ballot_sync(kFull, act > 0.5f);
+      }
+      const float e = act * ((zone0 && z < margin) ? 0.0f : 1.0f);
+      eb[k] = __ballot_sync(kFull, e > 0.5f);
+      cnt += __popc(eb[k]);
+    }
+    if (do_peel && lane < 4) mk[j * 4 + lane] = pick(nb, lane);
+    if (lane < 4) s.elig[jj * 4 + lane] = pick(eb, lane);
+    if (lane == 0) s.cnt[jj] = cnt;
+  }
+}
+
+// Warp 0: prior[jj] = carry + the exclusive int32 prefix of cnt[0..n) (exact
+// in any order; prior may be cnt itself); carry grows by their total.
+__device__ __forceinline__ void prefix_counts(const int* cnt, int* prior, int n, int& carry) {
+  const int lane = threadIdx.x & 31;
+  constexpr int kPer = kCapTiles / 32;
+  int v[kPer];
+  int own = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int jj = lane * kPer + i;
+    v[i] = jj < n ? cnt[jj] : 0;
+    own += v[i];
+  }
+  int inc = own;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += o;
+  }
+  int run = carry + inc - own;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int jj = lane * kPer + i;
+    if (jj < n) prior[jj] = run;
+    run += v[i];
+  }
+  carry += __shfl_sync(kFull, inc, 31);
+}
+
+// One thread: the end of a pass that took moment sums m: a final
+// FITDIST's g_count, the plane fit where the gate is open (fit) and the
+// sums hold a point. (m by reference: a pointer to it would put the array
+// in local memory.)
+__device__ __forceinline__ void end_moments(const float (&m)[10], bool gcount, bool fit,
+                                            float spx, float spy, float spz, float* orow,
+                                            PatchState* st) {
+  if (gcount) orow[kOutGcount] = m[0];
+  if (fit && m[0] > 0.0f) {  // else the plane keeps its carry
+    float row[14];
+    plane_row(m, spx, spy, spz, row);
+    for (int c = 0; c < 14; ++c) st->plane[c] = row[c];
+  }
+}
+
+// One thread: a SEEDFIT pass's vertical snapshot into slot snap.
+__device__ __forceinline__ void take_snapshot(const Args& a, int snap, bool zone0, float* orow,
+                                              PatchState* st) {
+  const float vert = (st->alive > 0.5f && zone0 && st->plane[2] < a.upright_thr) ? 1.0f : 0.0f;
+  float* s = orow + a.snap_off + 5 * snap;
+  s[0] = vert;
+  for (int c = 0; c < 4; ++c) s[1 + c] = st->plane[c];
+  st->alive = vert;
+}
+
+// One thread: the final plane's columns and its covariance's eigenvalues,
+// which the frame's tail reads.
+__device__ __forceinline__ void write_final(const Args& a, const PatchState* st, float* orow) {
+  for (int c = 0; c < 3; ++c) orow[kOutNormal + c] = st->plane[c];
+  orow[kOutD] = st->plane[3];
+  for (int c = 0; c < 3; ++c) orow[kOutMean + c] = st->plane[11 + c];
+  orow[kOutN] = st->plane[4];
+  for (int c = 0; c < 6; ++c) orow[kOutCov + c] = st->plane[5 + c];
+  float e[3];
+  eig3_values(st->plane[5], st->plane[6], st->plane[7], st->plane[8], st->plane[9],
+              st->plane[10], e);
+  for (int c = 0; c < 3; ++c) orow[a.carry2_off + 4 + c] = e[c];
+}
+
 // The pass program of one processed patch of T tiles starting at tile t0.
 template <class R>
 __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const float* g,
@@ -272,25 +401,21 @@ __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const fl
   const float spx = g[1], spy = g[2], spz = g[3];
   const bool zone0 = g[4] > 0.5f;
 
-  float* s_rows = reinterpret_cast<float*>(smem);
-  const float* sx_ = s_rows;
-  const float* sy_ = s_rows + kRowFloats;
-  const float* sz_ = s_rows + 2 * kRowFloats;
-  uint32_t* s_mask = reinterpret_cast<uint32_t*>(s_rows + 3 * kRowFloats);
-  uint32_t* s_elig = s_mask + 4 * kCapTiles;
-  int* s_cnt = reinterpret_cast<int*>(s_elig + 4 * kCapTiles);
-  float* s_part = reinterpret_cast<float*>(s_cnt + kCapTiles);
+  const Smem s = smem_layout(smem);
+  const float* sx_ = s.rows;
+  const float* sy_ = s.rows + kRowFloats;
+  const float* sz_ = s.rows + 2 * kRowFloats;
 
   const bool resident = T <= kCapTiles;  // uniform over the block
   const size_t g0 = static_cast<size_t>(t0) * kLane;
-  uint32_t* mk = resident ? s_mask : a.gmask + static_cast<size_t>(t0) * 4;
+  uint32_t* mk = resident ? s.mask : a.gmask + static_cast<size_t>(t0) * 4;
 
   if (tid == 0) {
     for (int c = 0; c < 14; ++c) st->plane[c] = 0.0f;
     st->alive = proc;
     st->lpr = 0.0f;
   }
-  if (resident) stage_rows(a, t0, T, s_rows);
+  if (resident) stage_rows(a, t0, T, s.rows);
   // active = valid * proc, as bits
   for (int j = warp; j < T; j += kWarps) {
     uint32_t w[4];
@@ -323,12 +448,12 @@ __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const fl
       const bool do_peel = peel >= 0;
       float sg = 0.f, snx = 0.f, sny = 0.f, snz = 0.f, sd = 0.f;
       if (do_peel) {
-        const float* s = orow + a.snap_off + 5 * peel;
-        sg = s[0];
-        snx = s[1];
-        sny = s[2];
-        snz = s[3];
-        sd = s[4];
+        const float* sp = orow + a.snap_off + 5 * peel;
+        sg = sp[0];
+        snx = sp[1];
+        sny = sp[2];
+        snz = sp[3];
+        sd = sp[4];
       }
       float acc = 0.0f;  // warp 0, lane < kLprParts: one part's chain
       int carry = 0;     // warp 0: eligible rows of the chunks before
@@ -336,63 +461,15 @@ __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const fl
       for (int j0 = 0; j0 < walk_to; j0 += kCapTiles) {
         const int n = min(kCapTiles, T - j0);
         if (!resident) {
-          stage_rows(a, t0 + j0, n, s_rows);
+          stage_rows(a, t0 + j0, n, s.rows);
           __syncthreads();
         }
         // walk 1: peel, eligibility bits and counts per tile (lane = row)
-        for (int jj = warp; jj < n; jj += kWarps) {
-          const int j = j0 + jj;
-          const uint4 w = *reinterpret_cast<const uint4*>(mk + j * 4);
-          const uint32_t wk[4] = {w.x, w.y, w.z, w.w};
-          uint32_t nb[4] = {0u, 0u, 0u, 0u}, eb[4];
-          int cnt = 0;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int i = srow(jj, lane + 32 * k);
-            float act = bit_f(wk[k], lane);
-            const float z = sz_[i];
-            if (do_peel) {
-              const float dist = plane_dist(sx_[i], sy_[i], z, snx, sny, snz, sd);
-              const float hit = (sg > 0.5f && fabsf(dist) < a.th_dist_v) ? 1.0f : 0.0f;
-              act = act * (1.0f - hit);
-              nb[k] = __ballot_sync(kFull, act > 0.5f);
-            }
-            const float e = act * ((zone0 && z < margin) ? 0.0f : 1.0f);
-            eb[k] = __ballot_sync(kFull, e > 0.5f);
-            cnt += __popc(eb[k]);
-          }
-          if (do_peel && lane < 4) mk[j * 4 + lane] = pick(nb, lane);
-          if (lane < 4) s_elig[jj * 4 + lane] = pick(eb, lane);
-          if (lane == 0) s_cnt[jj] = cnt;
-        }
+        seed_count_walk(a, s, mk, j0, n, do_peel, sg, snx, sny, snz, sd, zone0, margin);
         __syncthreads();
         if (!fit) continue;  // the peel alone
         // exclusive int32 prefix of the counts over the patch's tiles
-        if (warp == 0) {
-          constexpr int kPer = kCapTiles / 32;
-          int v[kPer];
-          int own = 0;
-#pragma unroll
-          for (int i = 0; i < kPer; ++i) {
-            const int jj = lane * kPer + i;
-            v[i] = jj < n ? s_cnt[jj] : 0;
-            own += v[i];
-          }
-          int inc = own;
-#pragma unroll
-          for (int off = 1; off < 32; off <<= 1) {
-            const int o = __shfl_up_sync(kFull, inc, off);
-            if (lane >= off) inc += o;
-          }
-          int run = carry + inc - own;
-#pragma unroll
-          for (int i = 0; i < kPer; ++i) {
-            const int jj = lane * kPer + i;
-            if (jj < n) s_cnt[jj] = run;
-            run += v[i];
-          }
-          carry += __shfl_sync(kFull, inc, 31);
-        }
+        if (warp == 0) prefix_counts(s.cnt, s.cnt, n, carry);
         __syncthreads();
         // walk 2: the LPR rows (rank < num_lpr) and their z, one lane per
         // window; each tile's two sums as parts
@@ -401,9 +478,9 @@ __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const fl
           float zw = 0.0f;
           int taken = 0;
           if (jj < n) {
-            const uint4 w = *reinterpret_cast<const uint4*>(s_elig + jj * 4);
+            const uint4 w = *reinterpret_cast<const uint4*>(s.elig + jj * 4);
             const uint32_t eb[4] = {w.x, w.y, w.z, w.w};
-            int rank = s_cnt[jj];
+            int rank = s.cnt[jj];
 #pragma unroll
             for (int k = 0; k < 3; ++k) rank += k < gw ? __popc(eb[k]) : 0;
             const float* zr = sz_ + jj * kTileFloats + gw * kWinStride;
@@ -416,12 +493,12 @@ __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const fl
           const float zt = tile_total(zw);
           const float ct = tile_total(static_cast<float>(taken));
           if (gw == 0 && jj < n) {
-            R::store(zt, s_part + jj * kPartSlots, 2);
-            R::store(ct, s_part + jj * kPartSlots + 1, 2);
+            R::store(zt, s.part + jj * kPartSlots, 2);
+            R::store(ct, s.part + jj * kPartSlots + 1, 2);
           }
         }
         __syncthreads();
-        if (warp == 0 && lane < kLprParts) acc = chain(acc, s_part + lane, n);
+        if (warp == 0 && lane < kLprParts) acc = chain(acc, s.part + lane, n);
         // the next chunk writes parts (and rows) only after its first
         // barrier, which warp 0 reaches after this chain
       }
@@ -450,35 +527,35 @@ __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const fl
       const int n = min(kCapTiles, T - j0);
       if (!resident) {
         __syncthreads();  // the last walk has read the staged rows
-        stage_rows(a, t0 + j0, n, s_rows);
+        stage_rows(a, t0 + j0, n, s.rows);
         __syncthreads();
       }
       for (int grp = warp * kTilesPerWarp; grp < n; grp += kWarps * kTilesPerWarp) {
         const int jj = grp + gt;
-        float s[10];
+        float m[10];
 #pragma unroll
-        for (int c = 0; c < 10; ++c) s[c] = 0.0f;
+        for (int c = 0; c < 10; ++c) m[c] = 0.0f;
         if (jj < n) {
           const uint32_t word = mk[(j0 + jj) * 4 + gw];
           const int base = jj * kTileFloats + gw * kWinStride;
           if (seed) {
             window_moments<true>(sx_ + base, sy_ + base, sz_ + base, word, lim, th, nx, ny, nz,
-                                 d, spx, spy, spz, s);
+                                 d, spx, spy, spz, m);
           } else {
             window_moments<false>(sx_ + base, sy_ + base, sz_ + base, word, lim, th, nx, ny, nz,
-                                  d, spx, spy, spz, s);
+                                  d, spx, spy, spz, m);
           }
         }
         float t[10];
 #pragma unroll
-        for (int c = 0; c < 10; ++c) t[c] = tile_total(s[c]);
+        for (int c = 0; c < 10; ++c) t[c] = tile_total(m[c]);
         if (gw == 0 && jj < n) {
 #pragma unroll
-          for (int c = 0; c < 10; ++c) R::store(t[c], s_part + jj * kPartSlots + c, 10);
+          for (int c = 0; c < 10; ++c) R::store(t[c], s.part + jj * kPartSlots + c, 10);
         }
       }
       __syncthreads();
-      if (warp == 0 && lane < kMomParts) acc = chain(acc, s_part + lane, n);
+      if (warp == 0 && lane < kMomParts) acc = chain(acc, s.part + lane, n);
       if (j0 + n < T) __syncthreads();  // the chain has read the parts
     }
 
@@ -492,38 +569,15 @@ __device__ __forceinline__ void fit_patch(const Args& a, int t0, int T, const fl
           float m[10];
 #pragma unroll
           for (int c = 0; c < 10; ++c) m[c] = R::combine(st->acc, c, 10);
-          if (!seed && is_final) orow[kOutGcount] = m[0];
-          if (fit && m[0] > 0.0f) {  // else the plane keeps its carry
-            float row[14];
-            plane_row(m, spx, spy, spz, row);
-            for (int c = 0; c < 14; ++c) st->plane[c] = row[c];
-          }
+          end_moments(m, !seed && is_final, fit, spx, spy, spz, orow, st);
         }
-        if (seed && snap >= 0) {
-          const float vert =
-              (st->alive > 0.5f && zone0 && st->plane[2] < a.upright_thr) ? 1.0f : 0.0f;
-          float* s = orow + a.snap_off + 5 * snap;
-          s[0] = vert;
-          for (int c = 0; c < 4; ++c) s[1 + c] = st->plane[c];
-          st->alive = vert;
-        }
+        if (seed && snap >= 0) take_snapshot(a, snap, zone0, orow, st);
       }
     }
     __syncthreads();
   }
 
-  if (tid == 0) {
-    for (int c = 0; c < 3; ++c) orow[kOutNormal + c] = st->plane[c];
-    orow[kOutD] = st->plane[3];
-    for (int c = 0; c < 3; ++c) orow[kOutMean + c] = st->plane[11 + c];
-    orow[kOutN] = st->plane[4];
-    for (int c = 0; c < 6; ++c) orow[kOutCov + c] = st->plane[5 + c];
-    // the final covariance's eigenvalues, which the frame's tail reads
-    float e[3];
-    eig3_values(st->plane[5], st->plane[6], st->plane[7], st->plane[8], st->plane[9],
-                st->plane[10], e);
-    for (int c = 0; c < 3; ++c) orow[a.carry2_off + 4 + c] = e[c];
-  }
+  if (tid == 0) write_final(a, st, orow);
 }
 
 template <class R>

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from patchworkpp_tpu_torch.device import resolve_device
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 from patchworkpp_tpu_torch.pipeline import FrameResult, make_frame_fn, make_sequence_fn
 from patchworkpp_tpu_torch.state import AdaptiveState, init_state
@@ -122,7 +123,7 @@ class PatchworkPP:
     False the unfused engine. ``chunks`` = K > 1 runs each frame as K row
     blocks on the device (``parallel/chunked.py``: the point-sharded
     program's emulation, not a speed lever; "tiled" or False only, and the
-    tiled fit then runs as plain PyTorch ops, not K1); the capacity must
+    tiled fit then runs the sharded fit kernel KS, not K1); the capacity must
     then be a multiple of K (a fixed one that is not raises; the automatic
     one rounds up to a multiple of lcm(8192, K)).
     """
@@ -137,12 +138,7 @@ class PatchworkPP:
     ) -> None:
         if chunks < 1:
             raise ValueError(f"chunks must be >= 1, got {chunks}")
-        device = torch.device(device or "cuda")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "PatchworkPP runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run on the CPU"
-            )
+        device = resolve_device(device or "cuda", "PatchworkPP")
         self.device = device
         self.params = params or Params()
         self.geom = CZMGeometry.create(self.params)

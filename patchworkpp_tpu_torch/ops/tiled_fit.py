@@ -153,6 +153,166 @@ def _lpr_table(zs, take, grank, num_lpr: int):
     return torch.cat([z_tab[:, :num_lpr], occ[:, :num_lpr]], dim=1)
 
 
+class FitProgram:
+    """The fit program on one shard's tiled layout, cut at its passes: the
+    per-frame constants, the state the passes carry (active rows, plane,
+    alive, snapshots, g_count, the final pass's plane) and each slice of a
+    pass as a method. :func:`tiled_fit` runs the slices in order;
+    ``ops/sharded_fit.py`` runs them as the phases of the sharded fit
+    kernel. Arguments as :func:`tiled_fit`."""
+
+    def __init__(self, xs, ys, zs, valid_f, tile_patch, pad_start, gates_p, margin_thr,
+                 params: Params, reduce=_reduce_tiles_split3):
+        p = self.params = params
+        self.xs, self.ys, self.zs = xs, ys, zs
+        self.reduce = reduce
+        self.margin_thr = margin_thr
+        nt = xs.shape[0]
+        spad = gates_p.shape[0]
+        dev = self.dev = xs.device
+        tpc = self.tpc = tile_patch.reshape(-1).to(torch.int64)
+        (self.npasses, self.kind, self.peel_slot, self.snap_slot, self.gate_alive,
+         self.final, self.th) = _pass_config(p)
+        self.idx, self.ok = tile_ranges(pad_start, nt)
+
+        self.gates_p = gates_p
+        self.proc_p = gates_p[:, 0]
+        self.zone0_p = gates_p[:, 4] > 0.5
+        gt = gates_p[tpc]
+        self.sx, self.sy, self.sz = gt[:, 1:2], gt[:, 2:3], gt[:, 3:4]
+        self.zone0_t = gt[:, 4:5] > 0.5
+        # first tile of each tile's patch run, for the exclusive tile prefix
+        self.first = (pad_start.to(torch.int64) // TILE)[tpc]
+
+        self.active = valid_f * gt[:, 0:1]
+        self.plane = torch.zeros((spad, PLANE_COLS), dtype=torch.float32, device=dev)
+        self.alive = self.proc_p
+        self.snap_off, self.carry2_off, self.out_cols = out_layout(p)
+        nsnap = (self.carry2_off - self.snap_off) // 5
+        self.snaps = [torch.zeros((spad, 5), device=dev) for _ in range(nsnap)]
+        self.g_count = torch.zeros(spad, device=dev)
+        self.final_tab = torch.zeros((spad, 4), device=dev)
+        self.one = torch.ones((), device=dev)
+        self.zero = torch.zeros((), device=dev)
+
+    def gate(self, i: int) -> torch.Tensor:
+        """(S,) pass i's fit gate: alive (R-VPF) or processed (R-GPF)."""
+        return self.alive if self.gate_alive[i] else self.proc_p
+
+    def peel(self, i: int) -> None:
+        """SEEDFIT: drop the rows within th_dist_v of the peel snapshot's
+        plane, where that snapshot's gate is open."""
+        if self.peel_slot[i] < 0:
+            return
+        snap_t = self.snaps[int(self.peel_slot[i])][self.tpc]
+        dist = plane_dist(self.xs, self.ys, self.zs, snap_t[:, 1:2], snap_t[:, 2:3],
+                          snap_t[:, 3:4], snap_t[:, 4:5])
+        hit = (
+            (snap_t[:, 0:1] > 0.5) & (torch.abs(dist) < f32(self.params.th_dist_v))
+        ).to(torch.float32)
+        self.active = self.active * (1.0 - hit)
+
+    def lpr_take(self):
+        """SEEDFIT: (take, rank, m_t): the eligible rows among the patch's
+        lowest num_lpr (exclusive tile prefix + in-tile lane rank), each
+        row's rank among the patch's eligible rows, each tile's count."""
+        elig = self.active * torch.where(
+            self.zone0_t & (self.zs < self.margin_thr), self.zero, self.one)
+        e = (elig > 0.5).to(torch.int32)
+        m_t = e.sum(dim=1, dtype=torch.int32)
+        excl = torch.cumsum(m_t, 0, dtype=torch.int32) - m_t
+        prior = excl - excl[self.first]
+        quota = torch.clamp_min(self.params.num_lpr - prior, 0)
+        rank = _lane_prefix_exclusive(e)
+        take = elig * (rank < quota[:, None]).to(torch.float32)
+        return take, prior[:, None] + rank, m_t
+
+    def lpr_sums(self, take) -> tuple:
+        """(lpr_sum, cnt) per patch of the taken rows (one shard)."""
+        per = torch.stack([row_sum(self.zs * take), row_sum(take)], dim=1)
+        tot = self.reduce(per, self.idx, self.ok)
+        return tot[:, 0], tot[:, 1]
+
+    def lpr_table(self, take, grank, m_t) -> torch.Tensor:
+        """(S, 2 num_lpr + 1) the shard's dense LPR candidate table: z at
+        each shard rank slot, the slots' occupancy, the eligible count."""
+        return self.reduce(torch.cat([
+            _lpr_table(self.zs, take, grank, self.params.num_lpr),
+            m_t[:, None].to(torch.float32),
+        ], dim=1), self.idx, self.ok)
+
+    def seed_mask(self, i: int, lpr_sum, cnt) -> torch.Tensor:
+        """SEEDFIT: the seed rows, z under the LPR mean + th, where the gate
+        is open."""
+        lpr_p = torch.where(cnt > 0, lpr_sum / torch.clamp_min(cnt, 1.0), self.zero)
+        return (
+            self.active
+            * (self.zs < lpr_p[self.tpc][:, None] + float(self.th[i])).to(torch.float32)
+            * (self.gate(i)[self.tpc][:, None] > 0.5).to(torch.float32)
+        )
+
+    def dist_mask(self, i: int) -> torch.Tensor:
+        """FITDIST: the rows under th from the current plane; the final
+        pass keeps that plane (carry2)."""
+        if self.final[i]:
+            self.final_tab = self.plane[:, 0:4]
+        pl_t = self.plane[self.tpc, 0:4]
+        dist = plane_dist(self.xs, self.ys, self.zs, pl_t[:, 0:1], pl_t[:, 1:2],
+                          pl_t[:, 2:3], pl_t[:, 3:4])
+        return self.active * (dist < float(self.th[i])).to(torch.float32)
+
+    def moments(self, mask) -> torch.Tensor:
+        """(S, 10) per-patch moment sums of the masked rows (one shard)."""
+        return self.reduce(_tile_moments(self.xs, self.ys, self.zs, self.sx, self.sy,
+                                         self.sz, mask), self.idx, self.ok)
+
+    def end_pass(self, i: int, momp) -> None:
+        """The end of pass i from its (merged) moment sums: g_count of the
+        final pass, the plane where the gate is open and the sums hold a
+        point, the vertical snapshot of a SEEDFIT pass."""
+        gate = self.gate(i)
+        if self.kind[i] == K_FITDIST and self.final[i]:
+            self.g_count = momp[:, 0]
+        row = plane_row_from_moments(
+            momp, self.gates_p[:, 1], self.gates_p[:, 2], self.gates_p[:, 3]
+        )
+        upd = (gate > 0.5) & (momp[:, 0] > 0)
+        self.plane = torch.where(upd[:, None], row, self.plane)
+        if self.kind[i] == K_SEEDFIT and self.snap_slot[i] >= 0:
+            vert = (
+                (self.alive > 0.5) & self.zone0_p
+                & (self.plane[:, 2] < f32(self.params.uprightness_thr))
+            ).to(torch.float32)
+            self.snaps[int(self.snap_slot[i])] = torch.cat(
+                [vert[:, None], self.plane[:, 0:4]], dim=1)
+            self.alive = vert
+
+    def table(self) -> torch.Tensor:
+        """The (S, out_cols) per-patch result table."""
+        plane = self.plane
+        spad = plane.shape[0]
+        svals = torch.stack(eig3_plane_columns(*plane[:, 5:11].unbind(1), vector=False), dim=1)
+        # [normal(3), d, mean(3), n, gcount, cov(6), pad, snaps(5*nsnap),
+        #  carry2(4), svals(3), pad]
+        out = torch.cat(
+            [
+                plane[:, 0:4],
+                plane[:, 11:14],
+                plane[:, 4:5],
+                self.g_count[:, None],
+                plane[:, 5:11],
+                torch.zeros((spad, 1), device=self.dev),
+                *self.snaps,
+                self.final_tab,
+                svals,
+                torch.zeros((spad, self.out_cols - (self.carry2_off + 7)), device=self.dev),
+            ],
+            dim=1,
+        )
+        assert out.shape == (spad, self.out_cols)
+        return out
+
+
 def tiled_fit(
     xs, ys, zs, valid_f, tile_patch, pad_start, gates_p, margin_thr,
     params: Params, reduce=_reduce_tiles_split3, comm=None,
@@ -175,6 +335,8 @@ def tiled_fit(
         table (slot r: the shard's r-th lowest eligible z of the patch)
         and sums it, like the occupancy and the eligible counts, with
         ``reduce``; every pass's moments go through ``reduce_patches``.
+        This is the plain version of the sharded fit kernel KS
+        (``ops/sharded_fit.py``).
 
     Returns:
       (S, out_cols) f32 per-patch result table (fit_kernel OUT_* layout,
@@ -182,119 +344,31 @@ def tiled_fit(
     """
     p = params
     sharded = comm is not None and comm.is_sharded
-    nt = xs.shape[0]
-    spad = gates_p.shape[0]
-    dev = xs.device
-    tpc = tile_patch.reshape(-1).to(torch.int64)
-    npasses, kind, peel, snap, gate_alive, final, th_arr = _pass_config(p)
-    idx, ok = tile_ranges(pad_start, nt)
-
-    proc_p = gates_p[:, 0]
-    zone0_p = gates_p[:, 4] > 0.5
-    gt = gates_p[tpc]
-    proc_t = gt[:, 0:1]
-    sx, sy, sz = gt[:, 1:2], gt[:, 2:3], gt[:, 3:4]
-    zone0_t = gt[:, 4:5] > 0.5
-
-    # first tile of each tile's patch run, for the exclusive tile prefix
-    first = (pad_start.to(torch.int64) // TILE)[tpc]
-
-    active = valid_f * proc_t
-    plane = torch.zeros((spad, PLANE_COLS), dtype=torch.float32, device=dev)
-    alive = proc_p
-    snap_off, carry2_off, out_cols = out_layout(p)
-    nsnap = (carry2_off - snap_off) // 5
-    snaps = [torch.zeros((spad, 5), device=dev) for _ in range(nsnap)]
-    g_count = torch.zeros(spad, device=dev)
-    final_tab = torch.zeros((spad, 4), device=dev)
-    one = torch.ones((), device=dev)
-    zero = torch.zeros((), device=dev)
-
-    for i in range(npasses):
-        gate = alive if gate_alive[i] else proc_p
-        th = float(th_arr[i])
-
-        if kind[i] == K_SEEDFIT:
-            if peel[i] >= 0:
-                snap_t = snaps[int(peel[i])][tpc]
-                dist = plane_dist(xs, ys, zs, snap_t[:, 1:2], snap_t[:, 2:3],
-                                  snap_t[:, 3:4], snap_t[:, 4:5])
-                hit = (
-                    (snap_t[:, 0:1] > 0.5) & (torch.abs(dist) < f32(p.th_dist_v))
-                ).to(torch.float32)
-                active = active * (1.0 - hit)
-
-            elig = active * torch.where(zone0_t & (zs < margin_thr), zero, one)
-            e = (elig > 0.5).to(torch.int32)
-            m_t = e.sum(dim=1, dtype=torch.int32)
-            excl = torch.cumsum(m_t, 0, dtype=torch.int32) - m_t
-            prior = excl - excl[first]
-            quota = torch.clamp_min(p.num_lpr - prior, 0)
-            rank = _lane_prefix_exclusive(e)
-            take = elig * (rank < quota[:, None]).to(torch.float32)
+    prog = FitProgram(xs, ys, zs, valid_f, tile_patch, pad_start, gates_p, margin_thr,
+                      p, reduce)
+    for i in range(prog.npasses):
+        if prog.kind[i] == K_SEEDFIT:
+            prog.peel(i)
+            take, grank, m_t = prog.lpr_take()
             if sharded:
-                loc = reduce(torch.cat([
-                    _lpr_table(zs, take, prior[:, None] + rank, p.num_lpr),
-                    m_t[:, None].to(torch.float32),
-                ], dim=1), idx, ok)
+                loc = prog.lpr_table(take, grank, m_t)
                 lpr_sum, cnt = comm.merge_lpr_table(
                     loc[:, :p.num_lpr], loc[:, p.num_lpr:2 * p.num_lpr],
                     loc[:, 2 * p.num_lpr], p.num_lpr,
                 )
             else:
-                per = torch.stack([row_sum(zs * take), row_sum(take)], dim=1)
-                tot = reduce(per, idx, ok)
-                lpr_sum, cnt = tot[:, 0], tot[:, 1]
-            lpr_p = torch.where(cnt > 0, lpr_sum / torch.clamp_min(cnt, 1.0), zero)
-            mask = (
-                active
-                * (zs < lpr_p[tpc][:, None] + th).to(torch.float32)
-                * (gate[tpc][:, None] > 0.5).to(torch.float32)
-            )
+                lpr_sum, cnt = prog.lpr_sums(take)
+            mask = prog.seed_mask(i, lpr_sum, cnt)
         else:  # K_FITDIST
-            if final[i]:
-                final_tab = plane[:, 0:4]
-            pl_t = plane[tpc, 0:4]
-            dist = plane_dist(xs, ys, zs, pl_t[:, 0:1], pl_t[:, 1:2],
-                              pl_t[:, 2:3], pl_t[:, 3:4])
-            mask = active * (dist < th).to(torch.float32)
-
-        momp = reduce(_tile_moments(xs, ys, zs, sx, sy, sz, mask), idx, ok)
+            mask = prog.dist_mask(i)
+        momp = prog.moments(mask)
         if sharded:
             momp = comm.reduce_patches(momp)
-        if kind[i] == K_FITDIST and final[i]:
-            g_count = momp[:, 0]
+        prog.end_pass(i, momp)
+    tiled_fit.calls += 1
+    return prog.table()
 
-        row = plane_row_from_moments(
-            momp, gates_p[:, 1], gates_p[:, 2], gates_p[:, 3]
-        )
-        upd = (gate > 0.5) & (momp[:, 0] > 0)
-        plane = torch.where(upd[:, None], row, plane)
 
-        if kind[i] == K_SEEDFIT and snap[i] >= 0:
-            vert = (
-                (alive > 0.5) & zone0_p & (plane[:, 2] < f32(p.uprightness_thr))
-            ).to(torch.float32)
-            snaps[int(snap[i])] = torch.cat([vert[:, None], plane[:, 0:4]], dim=1)
-            alive = vert
-
-    svals = torch.stack(eig3_plane_columns(*plane[:, 5:11].unbind(1), vector=False), dim=1)
-    # [normal(3), d, mean(3), n, gcount, cov(6), pad, snaps(5*nsnap),
-    #  carry2(4), svals(3), pad]
-    out = torch.cat(
-        [
-            plane[:, 0:4],
-            plane[:, 11:14],
-            plane[:, 4:5],
-            g_count[:, None],
-            plane[:, 5:11],
-            torch.zeros((spad, 1), device=dev),
-            *snaps,
-            final_tab,
-            svals,
-            torch.zeros((spad, out_cols - (carry2_off + 7)), device=dev),
-        ],
-        dim=1,
-    )
-    assert out.shape == (spad, out_cols)
-    return out
+# Calls of the plain program (read by chip_smoke.py: the sharded paths must
+# not run it on the card).
+tiled_fit.calls = 0

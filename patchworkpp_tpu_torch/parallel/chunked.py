@@ -19,9 +19,10 @@ threads issue them, and each hook's stack follows the tensors it reads.
 
 Like the JAX package's, this is a correctness and emulation feature and the
 building block of the shard x chunk composition, not a speed lever: under
-the sharded comm the fit runs the composed program (``ops/tiled_fit.py``)
-as plain PyTorch ops, not the fit kernel K1. ``num_chunks=1`` is the plain
-frame, K1 and all.
+the sharded comm the fit is the sharded fit kernel KS on the card
+(``ops/sharded_fit.py``, launches between the chunks' meetings) and its
+plain version, the composed ``ops/tiled_fit.py``, on the CPU; never K1.
+``num_chunks=1`` is the plain frame, K1 and all.
 """
 
 from __future__ import annotations
@@ -33,15 +34,16 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from patchworkpp_tpu_torch.device import resolve_device
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 from patchworkpp_tpu_torch.parallel.point_sharded import (
     GroupTransport,
     MeshComm,
     build,
     rank_rows,
-    resolve_device,
 )
 from patchworkpp_tpu_torch.pipeline import make_frame_fn, sequence_of
+from patchworkpp_tpu_torch.state import init_state
 
 
 class Exchange:
@@ -139,17 +141,21 @@ def run_chunks(exchange: Exchange, tasks, stream=None) -> list:
     return [f.result() for f in futures]
 
 
+def _chunk_wiring(params, geom, device, fused, num_chunks, outer=None):
+    """The :class:`Exchange` of ``num_chunks`` chunks, each chunk's comm,
+    and each chunk's per-shard frame on that comm."""
+    exchange = Exchange(num_chunks, outer)
+    comms = [MeshComm(ChunkTransport(exchange, i)) for i in range(num_chunks)]
+    frames = [make_frame_fn(params, geom, device, fused, comm=c) for c in comms]
+    return exchange, comms, frames
+
+
 def _chunk_frames(params, geom, device, fused, num_chunks, outer=None):
     """``fn(state, rows, npts) -> (state, FrameResult)`` running ``rows`` as
     ``num_chunks`` contiguous blocks in as many threads, one per-shard frame
     each; the result's mask is the chunks' masks in row order, every other
     field chunk 0's (the same in every chunk)."""
-    exchange = Exchange(num_chunks, outer)
-    frames = [
-        make_frame_fn(params, geom, device, fused,
-                      comm=MeshComm(ChunkTransport(exchange, i)))
-        for i in range(num_chunks)
-    ]
+    exchange, _, frames = _chunk_wiring(params, geom, device, fused, num_chunks, outer)
 
     def fn(state, rows: torch.Tensor, npts: int):
         r = rows.shape[0] // num_chunks
@@ -162,6 +168,31 @@ def _chunk_frames(params, geom, device, fused, num_chunks, outer=None):
             ground_mask=torch.cat([res.ground_mask for _, res in outs]))
 
     return fn
+
+
+def _chunk_fit_tables(params: Params, num_chunks: int, points: torch.Tensor, npts: int,
+                      fits, device="cuda") -> list:
+    """For checks only (tests and chip_smoke.py), not a frame path: the
+    chunked frame's fit stage alone, to hold one sharded fit against
+    another. ``points`` (P, 4) is cut into ``num_chunks`` row blocks, each
+    binned and tiled by its chunk's frame (fresh state); then each of
+    ``fits`` (``fit(fit_inputs, comm) -> table``) runs on every chunk in
+    turn, meeting the other chunks through the chunk comm. Returns, chunk
+    by chunk, the list of each fit's table."""
+    dev = resolve_device(device)
+    _check_rows(points.shape[0], num_chunks, "point capacity")
+    exchange, comms, frames = _chunk_wiring(params, CZMGeometry.create(params), dev, None,
+                                            num_chunks)
+    state = init_state(params, dev)
+    r = points.shape[0] // num_chunks
+
+    def task(i):
+        fi = frames[i].fit_inputs(state, points[i * r:(i + 1) * r], npts)
+        return [fit(fi, comms[i]) for fit in fits]
+
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    return run_chunks(exchange, [functools.partial(task, i) for i in range(num_chunks)],
+                      stream)
 
 
 def _check_rows(rows: int, num_chunks: int, what: str) -> None:
@@ -183,9 +214,9 @@ def make_chunked_frame_fn(
     The semantics are the point-sharded path's (the same ``MeshComm``
     hooks and fixed-order reductions), so the result equals
     ``point_sharded.build`` over a group of ``num_chunks`` ranks.
-    ``fused`` is None/"tiled" (the default, the composed fit program) or
-    False (the unfused engine); ``num_chunks=1`` returns the plain frame
-    with this engine selection."""
+    ``fused`` is None/"tiled" (the default, the sharded fit program: KS
+    on the card) or False (the unfused engine); ``num_chunks=1`` returns
+    the plain frame with this engine selection."""
     dev = resolve_device(device)
     geom = geom or CZMGeometry.create(params)
     if num_chunks == 1:

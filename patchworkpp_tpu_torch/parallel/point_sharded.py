@@ -26,22 +26,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from patchworkpp_tpu_torch.device import resolve_device
 from patchworkpp_tpu_torch.ops import seq_sum
 from patchworkpp_tpu_torch.ops.segments import SortedPoints, segment_rank
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 from patchworkpp_tpu_torch.pipeline import FrameComm, make_frame_fn, sequence_of
-
-
-def resolve_device(device) -> torch.device:
-    """The device a parallel entry point was asked for; CUDA without a card
-    raises, as the facade does (no quiet fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the parallel frames run on CUDA by default and no CUDA device "
-            "is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 class MeshComm(FrameComm):
@@ -168,8 +157,9 @@ def build(
     returns the whole result, which equals the chunked frame's at
     K = group size bit for bit.
 
-    ``fused``: "tiled" (default; the composed fit program with the comm's
-    hooks between its passes, ``ops/tiled_fit.py``) or False (the unfused
+    ``fused``: "tiled" (default; the fit program with the comm's hooks
+    between its passes: the kernel KS on the card, ``ops/sharded_fit.py``,
+    ``ops/tiled_fit.py`` on the CPU) or False (the unfused
     engine). A group of one rank gives the plain frame with the identity
     comm, with this engine selection, so the default runs K1 on the card
     (JAX ``_comm_for`` and ``_single_device``)."""

@@ -177,7 +177,7 @@ def dryrun_multiproc(n: int, device: str = "cuda", timeout: float = 600.0) -> No
     """Run the self-check over ``n`` gloo processes; raises on any label
     that differs from the single-process frame (or on a failed or hung
     rank), and without CUDA unless ``device="cpu"``."""
-    from patchworkpp_tpu_torch.parallel.point_sharded import resolve_device
+    from patchworkpp_tpu_torch.device import resolve_device
 
     spawn(_dryrun_rank, n, (str(resolve_device(device)),), timeout=timeout)
 

@@ -20,13 +20,13 @@ import dataclasses
 
 import torch
 
+from patchworkpp_tpu_torch.device import resolve_device
 from patchworkpp_tpu_torch.params import Params
 from patchworkpp_tpu_torch.parallel.point_sharded import (
     GroupTransport,
     build,
     build_sequence,
     rank_rows,
-    resolve_device,
 )
 from patchworkpp_tpu_torch.pipeline import FrameResult, make_frame_fn
 from patchworkpp_tpu_torch.state import AdaptiveState, init_state

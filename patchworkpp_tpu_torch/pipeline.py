@@ -53,6 +53,7 @@ from patchworkpp_tpu_torch.ops.segments import (
     segment_rank,
     sort_by_patch,
 )
+from patchworkpp_tpu_torch.ops.sharded_fit import sharded_fit
 from patchworkpp_tpu_torch.ops.tiled import TILE, build_tiled
 from patchworkpp_tpu_torch.ops.tiled_fit import out_layout, tiled_fit
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
@@ -434,13 +435,16 @@ def make_frame_fn(
     The fit kernels run as CUDA kernels on a CUDA device (the default) and
     as their plain versions when the caller asks for ``device="cpu"``.
 
-    Under a sharded comm the tiled engine runs the composed fit program,
-    ``ops/tiled_fit.py:tiled_fit``, with the comm's LPR merge and moment
-    reduction between its passes: plain PyTorch ops on either device, not
-    K1, which holds a whole patch in one CTA and has no point at which to
-    meet the other shards. This is the JAX package's own design (its
-    sharded tiled engine is XLA, never Pallas); K1's launch count reads 0 on
-    such frames. The kernel modes raise, in the JAX package's words."""
+    Under a sharded comm the tiled engine runs the fit program cut at its
+    cross-shard points, the comm's LPR merge and moment reduction between
+    its passes: on the card the sharded fit kernel KS
+    (``ops/sharded_fit.py``, ``csrc/fit_sharded.cu``), about a dozen
+    launches a frame, on the CPU its plain version, the composed
+    ``ops/tiled_fit.py:tiled_fit(comm=...)``. K1 holds a whole patch in one
+    CTA and has no point at which to meet the other shards, so its launch
+    count reads 0 on such frames (the JAX package's sharded tiled engine is
+    XLA, never Pallas). The kernel modes raise, in the JAX package's
+    words."""
     p = params
     comm = comm or FrameComm()
     sharded = comm.is_sharded
@@ -674,19 +678,18 @@ def make_frame_fn(
         args = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
                 fi.gates, fi.consts, p)
         with record_function("stage_fused_fit"):
-            if sharded:
-                out = torch.where(
-                    fi.counts[:, None] > 0,
-                    tiled_fit(*args[:7], fi.consts[0], p, comm=comm),
-                    torch.zeros((), device=dev),
-                )
-            elif fused == "onehot":
+            if fused == "onehot":
                 # K2's table is not masked by counts (pipeline.py:809-815)
                 out = fused_fit(*args)
             else:
+                if not sharded:
+                    table = fused_fit_grid(*args)
+                elif dev.type == "cuda":
+                    table = sharded_fit(*args, comm)
+                else:
+                    table = tiled_fit(*args[:7], fi.consts[0], p, comm=comm)
                 # the overflow bucket and empty patches hold no fit
-                out = torch.where(fi.counts[:, None] > 0, fused_fit_grid(*args),
-                                  torch.zeros((), device=dev))
+                out = torch.where(fi.counts[:, None] > 0, table, torch.zeros((), device=dev))
         with record_function("stage_gle_tail"):
             return _tail(state, fi, out)
 

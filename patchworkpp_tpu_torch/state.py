@@ -18,6 +18,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from patchworkpp_tpu_torch.device import resolve_device
 from patchworkpp_tpu_torch.params import Params
 
 BUF_CAP = 1064  # max_storage (1000) + the most samples a ring adds per frame
@@ -49,13 +50,14 @@ class AdaptiveState:
         np.savez(path, **self.to_numpy())
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "AdaptiveState":
+    def load(cls, path: str, device="cuda") -> "AdaptiveState":
         with np.load(path) as d:
             return from_numpy(d, device)
 
 
-def from_numpy(d: Mapping[str, Any], device="cpu") -> AdaptiveState:
-    """State from a dict of arrays or an open npz file (either package's).
+def from_numpy(d: Mapping[str, Any], device="cuda") -> AdaptiveState:
+    """State from a dict of arrays or an open npz file (either package's),
+    on ``device`` (CUDA unless asked otherwise; raises without a card).
 
     Buffer tails past each ring's count are re-zeroed: the frame's FIFO
     append adds new samples at the write offset and relies on zeros there
@@ -68,8 +70,10 @@ def from_numpy(d: Mapping[str, Any], device="cpu") -> AdaptiveState:
         mask = np.arange(buf.shape[1])[None, :] < cnt[:, None]
         return np.where(mask, buf, np.float32(0.0))
 
+    dev = resolve_device(device, "the adaptive state")
+
     def _t(a, dtype):
-        return torch.as_tensor(np.asarray(a, dtype), device=device)
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
 
     return AdaptiveState(
         sensor_height=_t(d["sensor_height"], np.float32),
@@ -82,10 +86,12 @@ def from_numpy(d: Mapping[str, Any], device="cpu") -> AdaptiveState:
     )
 
 
-def init_state(params: Params, device="cpu") -> AdaptiveState:
-    """Fresh state with the configured initial thresholds / sensor height."""
-    f32 = dict(dtype=torch.float32, device=device)
-    i32 = dict(dtype=torch.int32, device=device)
+def init_state(params: Params, device="cuda") -> AdaptiveState:
+    """Fresh state with the configured initial thresholds / sensor height,
+    on ``device`` (CUDA unless asked otherwise; raises without a card)."""
+    dev = resolve_device(device, "the adaptive state")
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     return AdaptiveState(
         sensor_height=torch.tensor(params.sensor_height, **f32),
         elevation_thr=torch.tensor(params.elevation_thr, **f32),

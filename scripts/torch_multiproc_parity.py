@@ -182,7 +182,7 @@ def main(argv=None) -> int:
     import torch
 
     from patchworkpp_tpu_torch import Params
-    from patchworkpp_tpu_torch.parallel.point_sharded import resolve_device
+    from patchworkpp_tpu_torch.device import resolve_device
     from patchworkpp_tpu_torch.parallel.selfcheck import spawn
 
     dev = resolve_device(args.device)

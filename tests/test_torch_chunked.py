@@ -49,7 +49,8 @@ def clouds():
 def single(clouds):
     """The port's single-device frame on each cloud, fresh."""
     fn = make_frame_fn(Params(), device="cpu")
-    return [fn(init_state(Params()), torch.from_numpy(_padded(c)), len(c)) for c in clouds]
+    return [fn(init_state(Params(), device="cpu"), torch.from_numpy(_padded(c)), len(c))
+            for c in clouds]
 
 
 def _assert_tables_close(tr, jr, label):
@@ -70,7 +71,7 @@ def test_chunked_frame_equals_single_and_jax(clouds, single, num_chunks):
     jfn = j_chunked(JParams(), num_chunks)
     for i, c in enumerate(clouds):
         pts = _padded(c)
-        st, res = fn(init_state(Params()), torch.from_numpy(pts), len(c))
+        st, res = fn(init_state(Params(), device="cpu"), torch.from_numpy(pts), len(c))
         jst, jres = jfn(jstate.init_state(JParams()), jnp.asarray(pts), jnp.int32(len(c)))
         label = f"K={num_chunks} cloud {i}"
         np.testing.assert_array_equal(res.ground_mask.numpy(), single[i][1].ground_mask.numpy(),
@@ -88,9 +89,10 @@ def test_chunked_sequence_matches_frame_loop(clouds):
     p = Params()
     stack = torch.from_numpy(np.stack([_padded(c) for c in clouds[:3]]))
     npts = [len(c) for c in clouds[:3]]
-    st_seq, res = make_chunked_sequence_fn(p, 4, device="cpu")(init_state(p), stack, npts)
+    st_seq, res = make_chunked_sequence_fn(p, 4, device="cpu")(
+        init_state(p, device="cpu"), stack, npts)
     frame = make_chunked_frame_fn(p, 4, device="cpu")
-    st = init_state(p)
+    st = init_state(p, device="cpu")
     for i in range(3):
         st, r = frame(st, stack[i], npts[i])
         for f in r._fields:
@@ -99,7 +101,7 @@ def test_chunked_sequence_matches_frame_loop(clouds):
     a, b = st_seq.to_numpy(), st.to_numpy()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    _, res_s = make_sequence_fn(p, device="cpu")(init_state(p), stack, npts)
+    _, res_s = make_sequence_fn(p, device="cpu")(init_state(p, device="cpu"), stack, npts)
     np.testing.assert_array_equal(res.ground_mask.numpy(), res_s.ground_mask.numpy())
 
 
@@ -134,9 +136,9 @@ def test_chunked_unfused_exact_vs_single_and_jax(clouds):
     c = clouds[0]
     pts = _padded(c)
     _, want = make_frame_fn(Params(), device="cpu", fused=False)(
-        init_state(Params()), torch.from_numpy(pts), len(c))
+        init_state(Params(), device="cpu"), torch.from_numpy(pts), len(c))
     _, res = make_chunked_frame_fn(Params(), 8, fused=False, device="cpu")(
-        init_state(Params()), torch.from_numpy(pts), len(c))
+        init_state(Params(), device="cpu"), torch.from_numpy(pts), len(c))
     _, jres = j_chunked(JParams(), 8, fused=False)(
         jstate.init_state(JParams()), jnp.asarray(pts), jnp.int32(len(c)))
     np.testing.assert_array_equal(res.ground_mask.numpy(), want.ground_mask.numpy())
@@ -146,7 +148,7 @@ def test_chunked_unfused_exact_vs_single_and_jax(clouds):
 def test_chunked_rejects_indivisible_capacity():
     fn = make_chunked_frame_fn(Params(), 3, device="cpu")
     with pytest.raises(ValueError, match="not divisible"):
-        fn(init_state(Params()), torch.zeros((8192, 4)), 0)
+        fn(init_state(Params(), device="cpu"), torch.zeros((8192, 4)), 0)
 
 
 def test_chunked_one_chunk_is_plain_frame(clouds, single):
@@ -155,7 +157,7 @@ def test_chunked_one_chunk_is_plain_frame(clouds, single):
     fn = make_chunked_frame_fn(Params(), 1, device="cpu")
     assert hasattr(fn, "fit_inputs")  # the plain fused frame's
     c = clouds[0]
-    _, res = fn(init_state(Params()), torch.from_numpy(_padded(c)), len(c))
+    _, res = fn(init_state(Params(), device="cpu"), torch.from_numpy(_padded(c)), len(c))
     for f in res._fields:
         np.testing.assert_array_equal(getattr(res, f).numpy(),
                                       getattr(single[0][1], f).numpy(), err_msg=f)

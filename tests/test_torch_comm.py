@@ -55,7 +55,7 @@ def test_identity_comm_keeps_every_bit(fused):
     p = Params()
     plain = make_frame_fn(p, device="cpu", fused=fused)
     ident = make_frame_fn(p, device="cpu", fused=fused, comm=FrameComm())
-    sa = sb = init_state(p)
+    sa = sb = init_state(p, device="cpu")
     for k in range(2):
         cloud = synth_cloud(3 + 5 * k, exact_edges=False)
         a = plain(sa, _padded(cloud), len(cloud))

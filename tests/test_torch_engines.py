@@ -74,7 +74,7 @@ def port_frames():
 @pytest.mark.parametrize("mode", [False, "onehot"])
 def test_engine_labels_match_jax(jax_frames, port_frames, mode, seed):
     jf, tf = jax_frames(mode), port_frames(mode)
-    js, ts = jstate.init_state(JParams()), init_state(Params())
+    js, ts = jstate.init_state(JParams()), init_state(Params(), device="cpu")
     for k, cloud in enumerate(_chain(seed)):
         pts = _padded(cloud)
         js, jr = jf(js, jnp.asarray(pts), jnp.int32(len(cloud)))
@@ -93,7 +93,7 @@ def test_port_engines_agree_on_edges(port_frames, seed):
     """Boundary-probe clouds, three chained frames: tiled == onehot ==
     unfused labels, and the same adapted sensor height."""
     modes = ("tiled", "onehot", False)
-    states = {m: init_state(Params()) for m in modes}
+    states = {m: init_state(Params(), device="cpu") for m in modes}
     for k in range(3):
         cloud = synth_cloud(seed + 5 * k, exact_edges=True)
         pts = torch.from_numpy(_padded(cloud))
@@ -112,9 +112,9 @@ def test_onehot_sequence_matches_frame_loop(port_frames):
     stack = torch.from_numpy(np.stack([_padded(c) for c in clouds]))
     npts = [len(c) for c in clouds]
     st_seq, res = tpipe.make_sequence_fn(p, device="cpu", fused="onehot")(
-        init_state(p), stack, npts
+        init_state(p, device="cpu"), stack, npts
     )
-    st = init_state(p)
+    st = init_state(p, device="cpu")
     for i in range(len(clouds)):
         st, r = port_frames("onehot")(st, stack[i], npts[i])
         for name in r._fields:
@@ -136,7 +136,8 @@ def test_facade_modes_reach_their_engine(port_frames, mode):
     engine = {None: "tiled", True: "tiled", "grid": "tiled", "grid_iota": "tiled"}.get(mode, mode)
     cloud = synth_cloud(2, exact_edges=False)
     res = PatchworkPP(capacity=CAP, device="cpu", fused=mode).estimate_ground(cloud)
-    _, want = port_frames(engine)(init_state(Params()), torch.from_numpy(_padded(cloud)),
+    _, want = port_frames(engine)(init_state(Params(), device="cpu"),
+                                  torch.from_numpy(_padded(cloud)),
                                   len(cloud))
     np.testing.assert_array_equal(res.ground_mask, want.ground_mask.numpy()[: len(cloud)])
 

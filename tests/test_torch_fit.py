@@ -75,7 +75,7 @@ def _cloud_fit_inputs(cloud: np.ndarray, p: Params, capacity: int):
     pts = np.zeros((capacity, 4), np.float32)
     pts[: len(cloud)] = cloud
     return make_frame_fn(p, device="cpu").fit_inputs(
-        init_state(p), torch.from_numpy(pts), len(cloud)
+        init_state(p, device="cpu"), torch.from_numpy(pts), len(cloud)
     )
 
 

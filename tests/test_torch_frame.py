@@ -89,7 +89,7 @@ def _assert_state_close(js, ts, label, atol=STATE_ATOL):
 
 @pytest.mark.parametrize("seed", range(5))
 def test_labels_match_jax_tiled_engine(jax_frame, torch_frame, seed):
-    js, ts = jstate.init_state(JParams()), init_state(Params())
+    js, ts = jstate.init_state(JParams()), init_state(Params(), device="cpu")
     for k, cloud in enumerate(_chain(seed)):
         pts = _padded(cloud)
         js, jr = jax_frame(js, jnp.asarray(pts), jnp.int32(len(cloud)))
@@ -109,7 +109,7 @@ def test_64_beam_chain_labels_match_jax(jax_frame, torch_frame):
     normal lies 7.6e-4 above the 0.707 uprightness threshold in the JAX
     engine: the port labels it alike only with the JAX engine's tile-sum
     order (ops.row_sum) and fused multiply-adds (ops.fma)."""
-    js, ts = jstate.init_state(JParams()), init_state(Params())
+    js, ts = jstate.init_state(JParams()), init_state(Params(), device="cpu")
     for k in range(3):
         cloud = make_scan(0, k)
         pts = np.zeros((CAPACITY, 4), np.float32)
@@ -133,7 +133,7 @@ def test_edge_probe_labels_match_without_straddlers(jax_frame, torch_frame, seed
     geom, jgeom = CZMGeometry.create(p), JGeom.create(jp)
     # jitted, as inside the frame program (op-by-op XLA may round otherwise)
     j_bins = jax.jit(lambda pts, n, sh: j_bin_points(pts, n, sh, jp, jgeom))
-    js, ts = jstate.init_state(jp), init_state(p)
+    js, ts = jstate.init_state(jp), init_state(p, device="cpu")
     for k in range(3):
         cloud = synth_cloud(seed + 5 * k, exact_edges=True)
         pts = _padded(cloud)
@@ -173,7 +173,7 @@ def test_subnormal_points_label_as_jax(jax_frame, torch_frame):
     """Points with a subnormal coordinate land in the JAX package's patch,
     and the frame's labels, processed patches and state follow, fresh and
     adapted."""
-    js, ts = jstate.init_state(JParams()), init_state(Params())
+    js, ts = jstate.init_state(JParams()), init_state(Params(), device="cpu")
     for seed in (0, 5):
         cloud = _with_subnormal_patch(seed)
         pts = _padded(cloud)
@@ -194,9 +194,9 @@ def test_sequence_matches_frame_loop(torch_frame):
     clouds = _chain(1)
     stack = torch.from_numpy(np.stack([_padded(c) for c in clouds]))
     st_seq, res = tpipe.make_sequence_fn(p, device="cpu")(
-        init_state(p), stack, [len(c) for c in clouds]
+        init_state(p, device="cpu"), stack, [len(c) for c in clouds]
     )
-    st = init_state(p)
+    st = init_state(p, device="cpu")
     for i in range(len(clouds)):
         st, r = torch_frame(st, stack[i], len(clouds[i]))
         for name in r._fields:
@@ -237,11 +237,11 @@ def test_facade_result_and_state_roundtrip(tmp_path, jax_frame):
     assert (res.normals[:, 2] >= 0).all()
 
     m.save_state(str(tmp_path / "port.npz"))
-    back = AdaptiveState.load(str(tmp_path / "port.npz"))
+    back = AdaptiveState.load(str(tmp_path / "port.npz"), device="cpu")
     for k, v in m.state.to_numpy().items():
         np.testing.assert_array_equal(back.to_numpy()[k], v, err_msg=k)
     m.reset()
-    for k, v in init_state(Params()).to_numpy().items():
+    for k, v in init_state(Params(), device="cpu").to_numpy().items():
         np.testing.assert_array_equal(m.state.to_numpy()[k], v, err_msg=k)
 
 
@@ -279,9 +279,9 @@ def test_empty_and_tiny_clouds_are_all_nonground(n):
 def test_replay_blocks_do_not_change_labels(torch_frame, monkeypatch):
     cloud = synth_cloud(3, exact_edges=False)
     pts = torch.from_numpy(_padded(cloud))
-    _, whole = torch_frame(init_state(Params()), pts, len(cloud))
+    _, whole = torch_frame(init_state(Params(), device="cpu"), pts, len(cloud))
     monkeypatch.setattr(tpipe, "_REPLAY_BLOCK", 1000)
-    _, blocked = torch_frame(init_state(Params()), pts, len(cloud))
+    _, blocked = torch_frame(init_state(Params(), device="cpu"), pts, len(cloud))
     assert torch.equal(whole.ground_mask, blocked.ground_mask)
 
 

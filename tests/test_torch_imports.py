@@ -41,7 +41,9 @@ def test_port_has_the_expected_files():
         "patchworkpp_tpu_torch/ops/tiled_fit.py",
         "patchworkpp_tpu_torch/ops/fit_kernel_grid.py",
         "patchworkpp_tpu_torch/ops/fit_kernel.py",
+        "patchworkpp_tpu_torch/ops/sharded_fit.py",
         "patchworkpp_tpu_torch/ops/nvcc.py",
+        "patchworkpp_tpu_torch/device.py",
         "patchworkpp_tpu_torch/ops/trig.py",
         "patchworkpp_tpu_torch/ops/segments.py",
         "patchworkpp_tpu_torch/ops/moments.py",

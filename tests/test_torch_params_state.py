@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import patchworkpp_tpu.params as jparams
 import patchworkpp_tpu.state as jstate
@@ -45,7 +46,7 @@ def test_geometry_matches(kw):
 def test_init_state_matches():
     p = dict(sensor_height=1.9, elevation_thr=(0.1, 0.2, 0.3, 0.4))
     js = jstate.init_state(jparams.Params(**p)).to_numpy()
-    ts = tstate.init_state(tparams.Params(**p)).to_numpy()
+    ts = tstate.init_state(tparams.Params(**p), device="cpu").to_numpy()
     assert tstate.BUF_CAP == jstate.BUF_CAP
     assert tstate.NUM_ADAPT_RINGS == jstate.NUM_ADAPT_RINGS
     assert list(js) == list(ts)
@@ -79,9 +80,9 @@ def test_state_file_crosses_packages(tmp_path, direction):
     path = str(tmp_path / "state.npz")
     if direction == "jax_to_torch":
         jstate.AdaptiveState.from_numpy(d).save(path)
-        back = tstate.AdaptiveState.load(path).to_numpy()
+        back = tstate.AdaptiveState.load(path, device="cpu").to_numpy()
     else:
-        tstate.from_numpy(d).save(path)
+        tstate.from_numpy(d, device="cpu").save(path)
         back = jstate.AdaptiveState.load(path).to_numpy()
     assert sorted(back) == sorted(d)
     for k in d:
@@ -92,8 +93,25 @@ def test_state_file_crosses_packages(tmp_path, direction):
 def test_from_numpy_rezeroes_tails():
     d = _random_state(3)
     d["elev_buf"] = d["elev_buf"] + 1.0  # dirty past the counts
-    st = tstate.from_numpy(d).to_numpy()
+    st = tstate.from_numpy(d, device="cpu").to_numpy()
     cnt = d["elev_cnt"]
     tail = np.arange(tstate.BUF_CAP)[None, :] >= cnt[:, None]
     assert (st["elev_buf"][tail] == 0).all()
     np.testing.assert_array_equal(st["elev_buf"][~tail], d["elev_buf"][~tail])
+
+
+@pytest.mark.parametrize("ctor", ["init_state", "from_numpy", "load"])
+def test_state_constructors_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch, ctor):
+    """init_state, from_numpy and AdaptiveState.load build on CUDA unless
+    given a device, as every other entry point does; without a card they
+    raise and name the way out, instead of building on the CPU."""
+    path = str(tmp_path / "state.npz")
+    tstate.init_state(tparams.Params(), device="cpu").save(path)
+    calls = {
+        "init_state": lambda: tstate.init_state(tparams.Params()),
+        "from_numpy": lambda: tstate.from_numpy(_random_state(1)),
+        "load": lambda: tstate.AdaptiveState.load(path),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[ctor]()

@@ -76,7 +76,7 @@ def test_preset_labels_match_jax_tiled_engine(name):
     jp, tp = getattr(j_presets, name)(), getattr(presets, name)()
     jfn = jax.jit(j_make_frame_fn(jp))
     tfn = make_frame_fn(tp, device="cpu")
-    js, ts = jstate.init_state(jp), init_state(tp)
+    js, ts = jstate.init_state(jp), init_state(tp, device="cpu")
     for k in range(3):
         cloud = synth_cloud(2 + 5 * k, exact_edges=False)
         pts = _padded(cloud)

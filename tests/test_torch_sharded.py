@@ -121,7 +121,7 @@ def test_point_sharded_equals_chunked(runs, frames, n):
     p = Params()
     fn = make_chunked_frame_fn(p, n, device="cpu")
     for f in range(2):
-        want = _flat(*fn(init_state(p), torch.from_numpy(stack[f]), npts[f]))
+        want = _flat(*fn(init_state(p, device="cpu"), torch.from_numpy(stack[f]), npts[f]))
         for r, got in enumerate(runs[n][2]):
             _assert_equal(_fields(got, f"ps{f}_"), want, f"{n} ranks, rank {r}, frame {f}")
 
@@ -144,7 +144,7 @@ def test_chain_equals_frame_loop(runs, frames, n):
     sequence's."""
     stack, npts = frames
     _, res = make_sequence_fn(Params(), device="cpu")(
-        init_state(Params()), torch.from_numpy(stack), npts)
+        init_state(Params(), device="cpu"), torch.from_numpy(stack), npts)
     for r, got in enumerate(runs[n][2]):
         for f in range(FRAMES):
             _assert_equal(_fields(got, f"chain{f}_"), _fields(got, f"loop{f}_"),
@@ -183,14 +183,14 @@ def test_group_of_one_is_plain_frame(frames, tmp_path):
     stack, npts = frames
     p = Params()
     x = torch.from_numpy(stack[0])
-    _, want = make_frame_fn(p, device="cpu")(init_state(p), x, npts[0])
+    _, want = make_frame_fn(p, device="cpu")(init_state(p, device="cpu"), x, npts[0])
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
                             rank=0, world_size=1)
     try:
         fn = make_point_sharded_frame_fn(p, device="cpu")
         assert hasattr(fn, "fit_inputs")  # the plain fused frame's
         assert hasattr(make_sharded_chunked_frame_fn(p, 1, device="cpu"), "fit_inputs")
-        _, res = fn(init_state(p), x, npts[0])
+        _, res = fn(init_state(p, device="cpu"), x, npts[0])
         _, bres = make_batch_frame_fn(p, device="cpu")(
             batch_init_state(p, 1, "cpu"), x[None], npts[:1])
     finally:
