@@ -28,8 +28,10 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    table);
 4. drive the main paths through PatchworkPP(...).estimate_ground over
    --frames state-chained frames: the default engine (K1) and
-   fused="onehot" (K2), each with every launch count set to 0 just before
-   and read just after; the labels must equal the CPU path's on the same
+   fused="onehot" (K2), each a captured CUDA graph replayed once a frame
+   (patchworkpp_tpu_torch/graphs.py; one frame first builds the kernel and
+   captures the graph, then the state is reset), with every launch count
+   set to 0 just before and read just after; the labels must equal the CPU path's on the same
    frames, each kernel's launch count must equal the frame count on its
    path and be 0 on the other's, the final adaptive state must agree; then
    the unfused engine (fused=False) for 3 frames, labels equal to the CPU
@@ -45,7 +47,8 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the streaming server (serve/server.py) in a closed loop over 20 chained
    scans, each answered within a timeout by a live worker, labels and state
    equal to a facade's, K1 launched 20 times and K2 none (counts set to 0
-   just before), its p50/p95 service latency and timing report printed;
+   just before, after one frame that captures the server's graph), its
+   p50/p95 service latency and timing report printed;
    a 6-scan backlog through batch_max=2 equal to the per-frame facade; two
    streams of serve/multi_stream.py equal to two facades; the compat
    module's getters equal to the facade's result; and cli/bench.py run in
@@ -76,6 +79,18 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    launches a rank a frame, nothing else) and two frame-parallel streams,
    one per rank, each equal to its own facade, with K1 launched once per
    frame per rank; the 2-rank frame time on the host clock;
+4e. the captured frames (graphs.py): over 20 chained frames, captured ==
+   eager bit for bit (every FrameResult field and the state after each
+   frame) for the facade's tiled and onehot frames, both presets, the
+   crowded cloud on both engines, pipeline.segment, and a server whose
+   backlog runs as sequence batches (one graph, K1 launched 20 times);
+   K1 and K2 counted by name in a torch.profiler trace of 20 replays and
+   the launch counters equal to those counts; then eager against captured
+   in this one call, each on its own line: the frame median (CUDA
+   events), the facade's host ms a frame, the short bench's scans/s and
+   the server's closed-loop p50 and p95; the graph's memory pool in MB;
+   and a 24-frame sequence as the frame graph replayed 24 times against
+   the whole chain captured as one graph (ms a frame);
 5. time the three kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
    after warm-up (KS: chunk 0's 12 recorded launches replayed, and the fit
@@ -85,10 +100,12 @@ Phases, in order; any failure raises and exits nonzero before the last line:
 6. print {"ok": true, "device": {...}} as the last line.
 
 With --profile, a torch.profiler window over a few frames of each engine
-(tiled, onehot, unfused) follows phase 5: host and device time per frame
-stage, the device's busy share and the kernels that take the most device
-time (printed, and kept in chiprun_out/chip_smoke.json with the other
-numbers).
+(tiled, onehot, unfused, eagerly, and the tiled and onehot frames
+captured) follows phase 5: host and device time per frame stage (the
+eager frames; a replay has no stage ranges), the device's busy share, the
+device launches and the host's launch calls a frame, and the kernels that
+take the most device time (printed, and kept with the other numbers in
+the JSON record the script writes).
 
 Usage: python3 chip_smoke.py [--seed 0] [--frames 20] [--profile]
 Needs one CUDA card and nvcc (CUDA toolkit); run from a checkout of the repo.
@@ -393,6 +410,8 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
     # copy for the run; the bucketed upload == a tight capacity
     seq_m = PatchworkPP(capacity=CAPACITY, device=device)
     loop_m = PatchworkPP(capacity=CAPACITY, device=device)
+    seq_m.estimate_ground_sequence(chain[:1])  # captures the frame, outside the trace
+    seq_m.reset()
     seq_res = []
     events, _ = trace(lambda: seq_res.extend(seq_m.estimate_ground_sequence(chain[:6])))
     dtoh = sum(1 for e in events if e.on_device and "DtoH" in e.name)
@@ -432,6 +451,9 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
         if failed:  # a build or launch error on the first frame fails at once
             raise RuntimeError(f"{what}: a scan raised in the server: {failed[0]!r}")
 
+    if device == "cuda":  # builds the kernel and captures the frame, uncounted
+        srv.process(CloudMsg(points=chain[0], stamp=0.0))
+        srv._model.reset()
     fkg.fused_fit_grid.launches = 0
     fk.fused_fit.launches = 0
     with srv:
@@ -440,6 +462,8 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
             srv.publish(CloudMsg(points=s, stamp=time.perf_counter()))
             wait_answer(srv, f"closed loop message {i}")
     counts = {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches}
+    if device == "cuda":
+        _all_captured(srv._model, "server")
     want_k1 = SERVER_FRAMES if device == "cuda" else 0  # the CPU runs the plain fit
     if counts != {"fit_grid": want_k1, "fit_onehot": 0}:
         raise AssertionError(f"server: launches {counts} in {SERVER_FRAMES} frames, "
@@ -523,7 +547,7 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
         raise RuntimeError(f"bench exited {proc.returncode}: {proc.stderr[-2000:]}")
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     if not (line["metric"].endswith("_seq_scans_per_s") and np.isfinite(line["value"])
-            and line["value"] > 0):
+            and line["value"] > 0 and line["captured"] == (device == "cuda")):
         raise AssertionError(f"bench line malformed: {line}")
     out["bench"] = line
     print(f"bench ({' '.join(cmd[2:])}): {line['metric']} {line['value']:.3f} scans/s "
@@ -578,6 +602,7 @@ def references_phase(here, card, device="cuda") -> dict:
 
     from patchworkpp_tpu_torch import PatchworkPP
     from patchworkpp_tpu_torch.cli import eval_semantickitti, stream_bench
+    from patchworkpp_tpu_torch.graphs import WARMUP_FRAMES
     from patchworkpp_tpu_torch.io.synthetic import make_scan
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
@@ -650,10 +675,11 @@ def references_phase(here, card, device="cuda") -> dict:
         card_masks = {}
         for label, fused, kernel in (("tiled", None, "fit_grid"),
                                      ("onehot", "onehot", "fit_onehot")):
+            model = PatchworkPP(capacity=CAPACITY, device=device, fused=fused)
+            model.estimate_ground(scans[0])  # captures the frame (configs resets)
             fkg.fused_fit_grid.launches = 0
             fk.fused_fit.launches = 0
-            card_masks[label] = configs(PatchworkPP(capacity=CAPACITY, device=device,
-                                                    fused=fused))
+            card_masks[label] = configs(model)
             counts = {"fit_grid": fkg.fused_fit_grid.launches,
                       "fit_onehot": fk.fused_fit.launches}
             if counts != {k: 12 * per_frame if k == kernel else 0 for k in counts}:
@@ -676,9 +702,10 @@ def references_phase(here, card, device="cuda") -> dict:
             print(f"eval_semantickitti --batch {batch}: precision {line['precision']} "
                   f"recall {line['recall']} f1 {line['f1']}, {line['scans_per_s']:.1f} "
                   "scans/s")
-        if fkg.fused_fit_grid.launches != 12 * per_frame:
+        # each of the two runs captures one frame, after WARMUP_FRAMES eager ones
+        if fkg.fused_fit_grid.launches != per_frame * (12 + 2 * WARMUP_FRAMES):
             raise AssertionError(f"eval: fit_grid launched {fkg.fused_fit_grid.launches} "
-                                 "times in 12 frames")
+                                 f"times in 12 frames and 2 captures")
 
         # 6. the oracle: card vs oracle, and the CPU path's difference kept
         t_wait = time.perf_counter()
@@ -877,8 +904,11 @@ def multi_device_phase(seed, device="cuda") -> dict:
         raise AssertionError(f"chunks=2: launches {out['chunked_launches']}, expected {want}")
     same(chunked, run(PatchworkPP(p, capacity=CAPACITY, device="cpu", chunks=2), scans),
          "chunks=2 card vs cpu")
+    control = PatchworkPP(p, capacity=CAPACITY, device=dev)
+    control.estimate_ground(scans[0])  # captures the frame
+    control.reset()
     zero_counts()
-    plain = run(PatchworkPP(p, capacity=CAPACITY, device=dev), scans)
+    plain = run(control, scans)
     out["control_launches"] = counts()
     if out["control_launches"] != {"fit_grid": per_frame * MULTI_FRAMES, "fit_onehot": 0,
                                    "fit_sharded": 0, "tiled_fit_calls": 0}:
@@ -964,6 +994,311 @@ def multi_device_phase(seed, device="cuda") -> dict:
           f"spawn to exit {out['two_rank_wall_s']:.1f} s")
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"multi-device phase: {out['wall_s']:.1f} s")
+    return out
+
+
+GRAPH_FRAMES = 20
+GRAPH_BENCH_DISPATCHES = 6  # the short bench: 6 dispatches of 24 frames in 3 groups
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors equal bit for bit (floats through their int32 bits, so a
+    NaN, a one-point patch's eigenvalue, equals a NaN with the same bits)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return bitwise(a, b)
+    return torch.equal(a, b)
+
+
+def _same_frame(got, want, label):
+    """Two FrameResults and two states, every field bit for bit."""
+    (res_g, st_g), (res_w, st_w) = got, want
+    for name in res_w._fields:
+        if not _same_bits(getattr(res_g, name), getattr(res_w, name)):
+            raise AssertionError(f"{label}: FrameResult.{name} differs")
+    for k in st_w.to_numpy():
+        if not _same_bits(getattr(st_g, k), getattr(st_w, k)):
+            raise AssertionError(f"{label}: state {k} differs")
+
+
+def _all_captured(model, label):
+    frames = list(model._frames.values())
+    if not frames or not all(cf.is_captured for cf in frames):
+        raise AssertionError(f"{label}: the facade's frames are not all captured: "
+                             f"{[cf.is_captured for cf in frames]}")
+    return frames
+
+
+def graphs_phase(seed, scans, card, device="cuda") -> dict:
+    """Phase 4e: the captured frames (graphs.py) on the card. Captured ==
+    eager bit for bit over GRAPH_FRAMES chained frames (every FrameResult
+    field and the state after each frame): the facade's tiled and onehot
+    frames, both presets, the crowded cloud on both engines,
+    pipeline.segment, and a server whose backlog runs as batches; K1 and K2
+    counted by name in a torch.profiler trace of GRAPH_FRAMES replays, the
+    launch counters equal to those counts; then eager against captured in
+    this one call: the frame (CUDA events), the facade's host ms, the short
+    bench's scans/s, the server's p50 and p95; and the frame graph replayed
+    24 times against a 24-frame chain captured whole. Raises on any
+    failure."""
+    import threading
+
+    import torch
+
+    from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
+    from patchworkpp_tpu_torch import pipeline
+    from patchworkpp_tpu_torch.cli import bench
+    from patchworkpp_tpu_torch.graphs import WARMUP_FRAMES, CapturedFrame
+    from patchworkpp_tpu_torch.io.synthetic import make_crowded_scan
+    from patchworkpp_tpu_torch.models import patchwork_params, ros_launch_params
+    from patchworkpp_tpu_torch.ops import fit_kernel as fk
+    from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.serve import CloudMsg, GroundSegmentationServer, ServerConfig
+    from patchworkpp_tpu_torch.utils.roofline import trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    n = GRAPH_FRAMES
+    chain = scans[:n]
+    crowded = make_crowded_scan(seed)
+    out = {"warmup_frames": WARMUP_FRAMES}
+
+    def upload(cloud):
+        x = torch.zeros((CAPACITY, 4), device=dev)
+        x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
+        return x
+
+    def eager_chain(params, fused, clouds):
+        frame = pipeline.make_frame_fn(params, device=dev, fused=fused)
+        st, outs = init_state(params, dev), []
+        for c in clouds:
+            st, res = frame(st, upload(c), len(c))
+            outs.append((res, st))
+        return outs
+
+    # a. the facade: captured == eager, frame by frame
+    t_cap = {}
+    for label, params, fused, clouds in (
+            ("tiled", Params(), None, chain), ("onehot", Params(), "onehot", chain),
+            ("patchwork_params", patchwork_params(), None, chain),
+            ("ros_launch_params", ros_launch_params(), None, chain),
+            ("crowded, tiled", Params(), None, [crowded] * n),
+            ("crowded, onehot", Params(), "onehot", [crowded] * n)):
+        want = eager_chain(params, fused, clouds)
+        m = PatchworkPP(params, capacity=CAPACITY, device=dev, fused=fused)
+        t0 = time.perf_counter()
+        m.estimate_ground(clouds[0])  # builds and captures the frame
+        t_cap[label] = time.perf_counter() - t0
+        m.reset()
+        for i, c in enumerate(clouds):
+            m.estimate_ground(c)
+            _same_frame((m.last_result, m._state), want[i], f"{label} frame {i}, captured")
+        cf = _all_captured(m, label)[0]
+        out.setdefault("pool_mb", {})[label] = cf.pool_bytes / 2**20
+        print(f"captured == eager, {label}: {n} chained frames bit for bit (every field, "
+              f"the state); first frame with capture {t_cap[label]:.2f} s, graph pool "
+              f"{cf.pool_bytes / 2**20:.2f} MB")
+    out["first_frame_with_capture_s"] = t_cap
+
+    # b. pipeline.segment: a captured frame cached per Params
+    p = Params()
+    want = eager_chain(p, None, chain)
+    st = init_state(p, dev)
+    for i, c in enumerate(chain):
+        st, res = pipeline.segment(st, upload(c), len(c), p)
+        _same_frame((res, st), want[i], f"segment frame {i}")
+    if not pipeline._cached_frame_fn(p, upload(chain[0]).device).is_captured:
+        raise AssertionError("segment's frame is not captured")
+    print(f"captured == eager, pipeline.segment: {n} chained frames bit for bit")
+
+    # c. a server whose backlog batches: every frame one replay of one graph
+    srv = GroundSegmentationServer(config=ServerConfig(
+        capacity=CAPACITY, queue_depth=8, batch_max=2, drop_when_full=False), device=device)
+    batches = []
+    seq_call = srv._model.estimate_ground_sequence
+    srv._model.estimate_ground_sequence = lambda clouds: (batches.append(len(clouds)),
+                                                           seq_call(clouds))[1]
+    srv.process(CloudMsg(points=chain[0], stamp=0.0))  # builds and captures
+    srv._model.reset()
+    got, errors, done = [], [], threading.Event()
+
+    def on_result(r):
+        got.append(r.result)
+        errors.append(r.error)
+        if len(got) == n or r.error is not None:
+            done.set()
+
+    srv.on_result(on_result)
+    fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+    with srv:
+        for c in chain:
+            srv.publish(CloudMsg(points=c, stamp=time.perf_counter()))
+        if not done.wait(300.0):
+            raise RuntimeError(f"server backlog: {len(got)} of {n} answered in 300 s")
+    if any(e is not None for e in errors):
+        raise RuntimeError(f"server backlog: a scan raised: {errors}")
+    counts = {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches}
+    if counts != {"fit_grid": n, "fit_onehot": 0}:
+        raise AssertionError(f"server backlog: launches {counts} in {n} frames")
+    for i, (r, (res, _)) in enumerate(zip(got, want)):
+        mask = res.ground_mask[: len(chain[i])].cpu().numpy()
+        proc = res.patch_processed.cpu().numpy()
+        if not (np.array_equal(r.ground_mask, mask)
+                and np.array_equal(r.centers, res.patch_mean.cpu().numpy()[proc])
+                and np.array_equal(r.normals, res.patch_normal.cpu().numpy()[proc])):
+            raise AssertionError(f"server backlog frame {i}: differs from the eager chain")
+    _same_frame((want[-1][0], srv._model._state), want[-1], "server backlog final state")
+    frames = _all_captured(srv._model, "server backlog")
+    if len(frames) != 1 or not any(b > 1 for b in batches):
+        raise AssertionError(f"server backlog: {len(frames)} graphs, batches {batches}")
+    out["server_backlog"] = {"batches": batches, "launches": counts}
+    print(f"captured == eager, server with a backlog: {n} frames ({sum(batches)} in "
+          f"{len(batches)} sequence calls of {sorted(set(batches))}), one graph, launches "
+          f"{counts}")
+
+    # d. the fit kernel by name in a profiler trace of n replays
+    out["profiled_replays"] = {}
+    for label, fused, name, counter in (("tiled", None, "Split3", fkg.fused_fit_grid),
+                                        ("onehot", "onehot", "F32Chain", fk.fused_fit)):
+        m = PatchworkPP(p, capacity=CAPACITY, device=dev, fused=fused)
+        m.estimate_ground(chain[0])
+        cf = _all_captured(m, label)[0]
+        xs = [upload(c) for c in chain]
+        fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
+        events, _ = trace(lambda: [cf.run(x, len(c)) for x, c in zip(xs, chain)])
+        named = sum(e.on_device and "fit_program_kernel" in e.name and name in e.name
+                    for e in events)
+        launched = {"fit_grid": fkg.fused_fit_grid.launches,
+                    "fit_onehot": fk.fused_fit.launches}
+        if named != n or counter.launches != n or sum(launched.values()) != n:
+            raise AssertionError(f"{label}: {named} fit kernels named {name} in the trace of "
+                                 f"{n} replays, counters {launched}")
+        out["profiled_replays"][label] = {"kernels_named": named, "launches": launched}
+        print(f"{label}: {n} replays traced, fit_program_kernel<{name}> {named} times on the "
+              f"card, launch counters {launched}")
+
+    # e. eager against captured, in this one call
+    def frame_ms(fn, xs):
+        for k in range(3):
+            fn(k, xs)
+        ev = []
+        for k in range(len(xs)):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn(k, xs)
+            b.record()
+            torch.cuda.synchronize()
+            ev.append(a.elapsed_time(b))
+        return float(np.median(ev))
+
+    xs = [upload(c) for c in chain]
+    timing = {}
+    for label, fused in (("tiled", None), ("onehot", "onehot")):
+        frame = pipeline.make_frame_fn(p, device=dev, fused=fused)
+        box = [init_state(p, dev)]
+
+        def eager(k, xs, frame=frame, box=box):
+            box[0], _ = frame(box[0], xs[k], len(chain[k]))
+
+        m = PatchworkPP(p, capacity=CAPACITY, device=dev, fused=fused)
+        m.estimate_ground(chain[0])
+        cf = _all_captured(m, label)[0]
+        timing[f"{label}_frame_ms"] = {
+            "eager": frame_ms(eager, xs),
+            "captured": frame_ms(lambda k, xs: cf(xs[k], len(chain[k])), xs)}
+        host = {}
+        for mode in ("eager", "captured"):
+            fm = PatchworkPP(p, capacity=CAPACITY, device=dev, fused=fused)
+            fm._capture = mode == "captured"  # the eager facade, for this comparison
+            fm.estimate_ground(chain[0])
+            fm.reset()
+            host[mode] = float(np.median(
+                [fm.estimate_ground(c).time_taken_s for c in chain][1:]) * 1e3)
+        timing[f"{label}_facade_host_ms"] = host
+        print(f"eager vs captured, {label} frame median (CUDA events): "
+              f"{timing[f'{label}_frame_ms']['eager']:.3f} ms vs "
+              f"{timing[f'{label}_frame_ms']['captured']:.3f} ms; {card}")
+        print(f"eager vs captured, {label} facade host ms a frame (upload, frame, "
+              f"readback; median of {n - 1}): {host['eager']:.3f} vs {host['captured']:.3f}; "
+              f"{card}")
+
+    stack6, npts6 = bench.build_stack(scans[:6], 1, CAPACITY)
+    stack = torch.from_numpy(np.tile(stack6, (4, 1, 1))).to(dev)
+    npts = [int(k) for k in np.tile(npts6, 4)]
+    rates = {}
+    for mode, seq in (("eager", pipeline.sequence_of(pipeline.make_frame_fn(p, device=dev))),
+                      ("captured", pipeline.make_sequence_fn(p, device=dev))):
+        box = [init_state(p, dev)]
+
+        def step(seq=seq, box=box):
+            box[0], _ = seq(box[0], stack, npts)
+
+        for _ in range(bench.WARMUP_DISPATCHES):
+            step()
+        r, _, _ = bench.timed_groups(step, lambda box=box: box[0].sensor_height.item(),
+                                     GRAPH_BENCH_DISPATCHES, 3, len(npts))
+        rates[mode] = {"median": float(np.median(r)), "min": min(r), "max": max(r)}
+        if mode == "captured" and not seq.is_captured:
+            raise AssertionError("the bench's sequence is not captured")
+    timing["bench_scans_per_s"] = rates
+
+    # the whole 24-frame chain as one graph, against the frame graph
+    # replayed 24 times (what make_sequence_fn does), on the bench's stack
+    seq = pipeline.make_sequence_fn(p, device=dev)
+    chain_cf = CapturedFrame(pipeline.make_frame_fn(p, device=dev), CAPACITY, init_state(p, dev))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            chain_cf.sequence(stack, npts)
+    torch.cuda.current_stream().wait_stream(side)
+    whole = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(whole, stream=side):
+        chain_cf.sequence(stack, npts)
+    st0 = init_state(p, dev)
+    per_frame = {"frame_graph": lambda: seq(st0, stack, npts), "chain_graph": whole.replay}
+    chain_ms = {k: cuda_ms(fn, reps=5) / len(npts) for k, fn in per_frame.items()}
+    timing["chain_ms_per_frame"] = chain_ms
+    print(f"a {len(npts)}-frame sequence, ms a frame (CUDA events): the frame graph replayed "
+          f"{len(npts)} times {chain_ms['frame_graph']:.4f}, the whole chain captured as one "
+          f"graph {chain_ms['chain_graph']:.4f}; {card}")
+    print(f"eager vs captured, short bench ({GRAPH_BENCH_DISPATCHES} dispatches of "
+          f"{len(npts)} chained frames, 3 groups): {rates['eager']['median']:.3f} vs "
+          f"{rates['captured']['median']:.3f} scans/s (min {rates['eager']['min']:.3f} / "
+          f"{rates['captured']['min']:.3f}, max {rates['eager']['max']:.3f} / "
+          f"{rates['captured']['max']:.3f}); {card}")
+
+    lat = {}
+    for mode in ("eager", "captured"):
+        srv = GroundSegmentationServer(config=ServerConfig(capacity=CAPACITY), device=device)
+        srv._model._capture = mode == "captured"  # the eager server, for this comparison
+        srv.process(CloudMsg(points=chain[0], stamp=0.0))
+        got_l, answered = [], threading.Event()
+        srv.on_result(lambda r: (got_l.append((time.perf_counter() - r.msg.stamp, r.error)),
+                                 answered.set()))
+        with srv:
+            for i, c in enumerate(chain):
+                answered.clear()
+                srv.publish(CloudMsg(points=c, stamp=time.perf_counter()))
+                if not answered.wait(120.0):
+                    raise RuntimeError(f"{mode} server: message {i} not answered in 120 s")
+        if any(e is not None for _, e in got_l):
+            raise RuntimeError(f"{mode} server: a scan raised")
+        ms = np.asarray([t for t, _ in got_l]) * 1e3
+        lat[mode] = {"p50": float(np.percentile(ms, 50)), "p95": float(np.percentile(ms, 95))}
+        if mode == "captured":
+            _all_captured(srv._model, "captured server")
+    timing["server_latency_ms"] = lat
+    print(f"eager vs captured, server closed loop ({n} frames): p50 "
+          f"{lat['eager']['p50']:.3f} vs {lat['captured']['p50']:.3f} ms, p95 "
+          f"{lat['eager']['p95']:.3f} vs {lat['captured']['p95']:.3f} ms; {card}")
+    out["timing"] = timing
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"graphs phase: {out['wall_s']:.1f} s")
     return out
 
 
@@ -1108,6 +1443,8 @@ def main() -> int:
         names the kernel that must have launched once a frame (the other
         must not have launched)."""
         gpu = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
+        gpu.estimate_ground(scans[0])  # builds the kernel, captures the frame
+        gpu.reset()
         fkg.fused_fit_grid.launches = 0
         fk.fused_fit.launches = 0
         res = [gpu.estimate_ground(s) for s in scans[:frames]]
@@ -1118,6 +1455,8 @@ def main() -> int:
             if n != expect:
                 raise AssertionError(f"fused={fused!r}: {k} launched {n} times "
                                      f"in {frames} frames, expected {expect}")
+        if fused is not False:  # the fused engines run captured
+            _all_captured(gpu, f"fused={fused!r}")
         cpu = PatchworkPP(p, capacity=CAPACITY, device="cpu", fused=fused)
         for i, s in enumerate(scans[:frames]):
             r = cpu.estimate_ground(s)
@@ -1162,6 +1501,9 @@ def main() -> int:
 
     # ---- 4d. the multi-device layer: chunked, point-sharded, frame-parallel
     multi = multi_device_phase(args.seed)
+
+    # ---- 4e. captured frames: == eager bit for bit, kernels in the replays, timing
+    graphs = graphs_phase(args.seed, scans, card)
 
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
@@ -1240,7 +1582,8 @@ def main() -> int:
           f"bound {bound_ms:.5f} ms ({nbytes} B, {ops} ops); largest patch {largest} "
           f"tiles x {walks} walks: {per_walk_us:.5f} us per tile-walk; crowded-patch "
           f"cloud ({crowd_tiles} tiles, staged) {crowd_ms:.4f} ms; frame median "
-          f"{frame_ms:.3f} ms (CUDA events), {host_ms:.3f} ms host median incl. copies")
+          f"{frame_ms:.3f} ms (eager, CUDA events), {host_ms:.3f} ms the facade's host "
+          "median (captured frame, upload and readback included)")
     print(f"K2 {k2_ms:.4f} ms, plain on card {k2_plain_ms:.3f} ms, bound "
           f"{bound_ms:.5f} ms, crowded-patch cloud {k2_crowd_ms:.4f} ms; "
           f"onehot frame median {frame_k2_ms:.3f} ms, "
@@ -1320,7 +1663,7 @@ def main() -> int:
         "k1_k2_max_abs_diff": k1k2_err, "serving": serving,
         "ks_crowded_ms": ks_crowd_ms,
         "ks_checks": {k: v for k, v in ks_main.items() if k != "record"},
-        "references": references, "multi_device": multi, **kernels,
+        "references": references, "multi_device": multi, "graphs": graphs, **kernels,
     }
     if args.profile:
         record["profile"] = {}
@@ -1331,6 +1674,13 @@ def main() -> int:
             st, _ = fn(init_state(p, dev), xs_dev[0], npts[0])  # warm-up
             record["profile"][label] = profile_frames(
                 fn, st, xs_dev, npts, n=min(n, len(scans)))
+        for label, fused in (("tiled captured", None), ("onehot captured", "onehot")):
+            print(f"engine {label}:")
+            m = PatchworkPP(p, capacity=CAPACITY, device=dev, fused=fused)
+            m.estimate_ground(scans[0])  # builds and captures, outside the trace
+            cf = _all_captured(m, label)[0]
+            record["profile"][label] = profile_frames(
+                lambda st, x, k: (st, cf(x, k)), None, xs_dev, npts, n=min(5, len(scans)))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

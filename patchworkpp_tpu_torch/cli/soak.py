@@ -2,7 +2,8 @@
 
 Runs thousands of state-chained frames through the sequence step (the
 bench's dispatch shape: ``make_sequence_fn`` over the six-scan cycle tiled
-``--repeat`` times) and checks what an unbounded deployment needs; the
+``--repeat`` times; on the card one captured frame replayed once a frame,
+``graphs.py``, as the JAX soak jits the sequence) and checks what an unbounded deployment needs; the
 reference runs unbounded sequences with its buffers FIFO-trimmed at 1000
 (cpp/patchworkpp/src/patchworkpp.cpp:338-375):
 
@@ -68,7 +69,7 @@ def run(args) -> dict:
     sizes = [base + (1 if g < rem else 0) for g in range(groups)]
 
     st = init_state(params, dev)
-    for _ in range(2):  # warm-up: builds the kernel
+    for _ in range(2):  # warm-up: builds the kernel, captures the frame
         st, _ = seq(st, stack, npts)
     st.sensor_height.item()
 

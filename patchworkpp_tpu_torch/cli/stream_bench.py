@@ -2,9 +2,10 @@
 
 The streaming shape of a live feed (port of ``patchworkpp_tpu/cli/
 stream_bench.py``): each scan of the six-scan cycle (``cli/workload.py``)
-reaches the device frame after frame; the frame step runs with the adaptive
-state resident on the device; each frame's ground mask is copied back one
-frame late, so the copy overlaps the next frame's work. Two loaders:
+reaches the device frame after frame; the frame step (on the card a captured
+frame, ``graphs.py``, as the JAX CLI jits it) runs with the adaptive state
+resident on the device; each frame's ground mask is copied back one frame
+late, so the copy overlaps the next frame's work. Two loaders:
 
 - ``numpy`` (default): each scan padded once on the host, kept in pinned
   memory on a card and uploaded from there every frame;
@@ -83,15 +84,16 @@ def run(dev, capacity: int, epochs: int, loader: str = "numpy", scans=None,
     ``dev``; ``scans`` (arrays) feed the numpy loader, ``paths`` (files) the
     native one. Returns (frames, seconds, the first epoch's ground masks)."""
     from patchworkpp_tpu_torch import Params, init_state
+    from patchworkpp_tpu_torch.graphs import CompiledFrame
     from patchworkpp_tpu_torch.pipeline import make_frame_fn
 
     cycle = len(scans) if loader == "numpy" else len(paths)
     total = epochs * cycle
     params = Params()
-    fn = make_frame_fn(params, device=dev)
+    fn = CompiledFrame(make_frame_fn(params, device=dev), params, dev)
     state = init_state(params, dev)
-    # warm-up: builds the fit kernel (and the native loader, outside the
-    # timed loop)
+    # warm-up: builds the fit kernel and captures the frame (and builds the
+    # native loader, outside the timed loop)
     state, res = fn(state, torch.zeros((capacity, 4), device=dev), 0)
     res.ground_mask.cpu()
     if loader == "native":

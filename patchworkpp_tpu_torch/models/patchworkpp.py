@@ -3,10 +3,14 @@
 cpp/patchworkpp/include/patchwork/patchworkpp.h:114-235).
 
 NumPy in / NumPy out. The frame runs on ``device`` ("cuda" by default) and
-the adaptive state stays there between frames. A scan is uploaded as the
-8192-row bucket that holds its rows and zero-extended to the capacity on the
-device; each frame's result, or each run of frames', comes back to the host
-in one device -> host copy of one packed buffer.
+the adaptive state stays there between frames, in static buffers that each
+frame updates in place. On the card a fused engine's frame is a captured
+CUDA graph, one per (RNR setting, capacity), as the JAX facade jits one
+(``graphs.py``); the unfused engine, the chunked frames and the CPU run the
+same static-buffer step eagerly. A scan is uploaded as the 8192-row bucket
+that holds its rows and zero-extended to the capacity on the device; each
+frame's result, or each run of frames', comes back to the host in one
+device -> host copy of one packed buffer.
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ import numpy as np
 import torch
 
 from patchworkpp_tpu_torch.device import resolve_device
+from patchworkpp_tpu_torch.graphs import CapturedFrame
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
-from patchworkpp_tpu_torch.pipeline import FrameResult, make_frame_fn, make_sequence_fn
+from patchworkpp_tpu_torch.pipeline import FrameResult, make_frame_fn
 from patchworkpp_tpu_torch.state import AdaptiveState, init_state
 
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -145,17 +150,31 @@ class PatchworkPP:
         self._fixed_capacity = capacity
         self._fused = fused
         self._chunks = chunks
-        self._fns = {}  # (kind, enable_rnr) -> frame or sequence fn
-        self.state = init_state(self.params, device)
+        # (enable_rnr, capacity, captured) -> the frame over the state buffers
+        self._frames = {}
+        # the fused engines on the card run captured; the unfused engine,
+        # the chunked frames and the CPU run the same step eagerly
+        self._capture = device.type == "cuda" and chunks == 1 and fused is not False
+        self._state = init_state(self.params, device)
         self.last_result: Optional[FrameResult] = None
 
     # ------------------------------------------------------------------ state
+
+    @property
+    def state(self) -> AdaptiveState:
+        """A copy of the adaptive state (the frames update their buffers in
+        place). Assigning a state copies it into those buffers."""
+        return self._state.clone()
+
+    @state.setter
+    def state(self, state: AdaptiveState) -> None:
+        self._state.copy_(state)
 
     def reset(self) -> None:
         self.state = init_state(self.params, self.device)
 
     def save_state(self, path: str) -> None:
-        self.state.save(path)
+        self._state.save(path)
 
     def load_state(self, path: str) -> None:
         self.state = AdaptiveState.load(path, self.device)
@@ -163,7 +182,7 @@ class PatchworkPP:
     @property
     def sensor_height(self) -> float:
         """Adapted sensor height (reference getHeight(), patchworkpp.h:154)."""
-        return float(self.state.sensor_height)
+        return float(self._state.sensor_height)
 
     # ------------------------------------------------------------------ run
 
@@ -182,27 +201,31 @@ class PatchworkPP:
             raise ValueError(f"scan has {n} points > fixed capacity {cap}")
         return cap
 
-    def _get_fn(self, kind: str, enable_rnr: bool):
-        """The frame ("frame") or sequence ("seq") step of this engine with
-        RNR on or off, built once."""
-        fn = self._fns.get((kind, enable_rnr))
-        if fn is None:
+    def _frame(self, enable_rnr: bool, cap: int, captured: Optional[bool] = None
+               ) -> CapturedFrame:
+        """The frame of this engine with RNR on or off at capacity ``cap``
+        over the state buffers (JAX ``_get_fn``'s key), built once: captured
+        on the card unless the engine runs eagerly or ``captured`` is False
+        (the profiled frame)."""
+        captured = self._capture if captured is None else captured
+        key = (enable_rnr, cap, captured)
+        cf = self._frames.get(key)
+        if cf is None:
             p = self.params if enable_rnr == self.params.enable_RNR else (
                 self.params.replace(enable_RNR=enable_rnr)
             )
             if self._chunks > 1:
-                from patchworkpp_tpu_torch.parallel.chunked import (
-                    make_chunked_frame_fn,
-                    make_chunked_sequence_fn,
-                )
+                from patchworkpp_tpu_torch.parallel.chunked import make_chunked_frame_fn
 
-                make = make_chunked_frame_fn if kind == "frame" else make_chunked_sequence_fn
-                fn = make(p, self._chunks, self.geom, self._fused, self.device)
+                frame = make_chunked_frame_fn(p, self._chunks, self.geom, self._fused,
+                                              self.device)
             else:
-                make = make_frame_fn if kind == "frame" else make_sequence_fn
-                fn = make(p, self.geom, self.device, fused=self._fused)
-            self._fns[(kind, enable_rnr)] = fn
-        return fn
+                frame = make_frame_fn(p, self.geom, self.device, fused=self._fused)
+            cf = CapturedFrame(frame, cap, self._state)
+            if captured:
+                cf.capture()
+            self._frames[key] = cf
+        return cf
 
     @staticmethod
     def _check_cloud(cloud) -> np.ndarray:
@@ -233,16 +256,19 @@ class PatchworkPP:
 
     def estimate_ground(self, cloud: np.ndarray) -> SegmentationResult:
         """Segment one scan. ``cloud`` is (N, 3) or (N, 4) float32."""
+        return self._estimate(cloud)
+
+    def _estimate(self, cloud: np.ndarray, captured: Optional[bool] = None
+                  ) -> SegmentationResult:
         cloud = self._check_cloud(cloud)
         n = cloud.shape[0]
         cap = self._capacity(n)
-        fn = self._get_fn("frame", self._rnr(cloud))
+        cf = self._frame(self._rnr(cloud), cap, captured)
         t0 = time.perf_counter()
         x = self._upload([cloud], cap)[0]
-        new_state, res = fn(self.state, x, n)
+        res = cf(x, n)
         mask, num_ground, means, normals, proc = self._readback(res)
         dt = time.perf_counter() - t0
-        self.state = new_state
         self.last_result = res
         if self.params.verbose:
             print(
@@ -258,9 +284,10 @@ class PatchworkPP:
 
         RNR gates per cloud as in :meth:`estimate_ground`, so a batch that
         mixes 3- and 4-column scans runs as consecutive uniform runs. Each
-        run is one call of ``pipeline.make_sequence_fn`` and one packed
-        readback; ``time_taken_s`` holds the run's wall time on its first
-        entry and 0.0 on the rest."""
+        run replays the frame of :meth:`estimate_ground` once a scan (on the
+        card one captured graph, whatever the run's length) and ends in one
+        packed readback; ``time_taken_s`` holds the run's wall time on its
+        first entry and 0.0 on the rest."""
         clouds = [self._check_cloud(c) for c in clouds]
         if not clouds:
             return []
@@ -276,14 +303,13 @@ class PatchworkPP:
         return out
 
     def _run_sequence(self, clouds, cap: int) -> list:
-        fn = self._get_fn("seq", self._rnr(clouds[0]))
+        cf = self._frame(self._rnr(clouds[0]), cap)
         npts = [c.shape[0] for c in clouds]
         t0 = time.perf_counter()
         x = self._upload(clouds, cap)
-        new_state, res = fn(self.state, x, npts)
+        res = cf.sequence(x, npts)
         masks, _, means, normals, procs = self._readback(res)
         dt = time.perf_counter() - t0
-        self.state = new_state
         self.last_result = FrameResult(*(f[-1] for f in res))
         return [
             _result(masks[i], means[i], normals[i], procs[i], n, dt if i == 0 else 0.0)
@@ -298,17 +324,19 @@ class PatchworkPP:
         ``frames`` calls of :meth:`estimate_ground` under ``torch.profiler``,
         aggregated by the pipeline's ``stage_*`` ranges. On the card a
         stage's time is the device time of the kernels inside its range; on
-        the CPU, the range's host time. Returns (stage -> seconds total,
-        top-op table); divide by ``frames`` for per-frame numbers. The state
-        advances by ``frames`` + 1 frames (one untraced warm-up)."""
+        the CPU, the range's host time. The profiled frame runs eagerly (a
+        graph replay has no ranges), on the same state. Returns (stage ->
+        seconds total, top-op table); divide by ``frames`` for per-frame
+        numbers. The state advances by ``frames`` + 1 frames (one untraced
+        warm-up)."""
         from patchworkpp_tpu_torch.utils.roofline import format_report, profile_frames
 
         cloud = self._check_cloud(cloud)
-        self.estimate_ground(cloud)  # builds and warms outside the trace
+        self._estimate(cloud, captured=False)  # builds and warms outside the trace
 
         def run():
             for _ in range(frames):
-                self.estimate_ground(cloud)  # ends in its readback (a sync)
+                self._estimate(cloud, captured=False)  # ends in its readback (a sync)
 
         stages, ops = profile_frames(run)
         if self.params.verbose:

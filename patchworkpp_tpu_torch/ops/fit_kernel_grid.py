@@ -81,10 +81,13 @@ def build_log() -> str:
     return nvcc.build_log(SOURCE)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _program(params: Params, device: torch.device) -> torch.Tensor:
     """The pass program as one (6, npasses) int32 device tensor: kind, peel
-    slot, snapshot slot, gate_alive, final, and the threshold's f32 bits."""
+    slot, snapshot slot, gate_alive, final, and the threshold's f32 bits.
+    Kept for the life of the process: a captured frame's graph reads it
+    through the pointer of its capture (``graphs.py``), so it must never
+    be freed or made again."""
     npasses, kind, peel, snap, gate_alive, final, th = _pass_config(params)
     rows = np.stack([kind, peel, snap, gate_alive, final, th.view(np.int32)])
     return torch.as_tensor(rows, device=device).contiguous()

@@ -21,6 +21,7 @@ and on the card.
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -417,7 +418,8 @@ def make_frame_fn(
     """Build the frame step ``fn(state, points, npts) -> (state, FrameResult)``.
 
     ``points`` is a (P, 4) float32 tensor on ``device`` (padded), ``npts``
-    the number of real rows (an int). With a sharded ``comm``
+    the number of real rows: an int, or on an unsharded frame a 0-d
+    integer tensor on ``device`` (the same bits). With a sharded ``comm``
     (``parallel/``) the step is the per-shard program: ``points`` are this
     shard's rows, ``npts`` the global count, the mask covers this shard's
     rows and every per-patch output is the merged one. ``fused`` picks the
@@ -625,14 +627,19 @@ def make_frame_fn(
         )
         return new_state, result
 
-    def _local_npts(points: torch.Tensor, npts: int) -> int:
+    def _local_npts(points: torch.Tensor, npts):
         """The real rows among this shard's: the global count less the
         shard's first row, clamped to [0, rows] (below 0 on the shards
-        past the last real point, above the rows on those before it)."""
+        past the last real point, above the rows on those before it). An
+        unsharded frame given a 0-d tensor (a captured frame's static
+        ``npts``, graphs.py) clamps it on its device: a host read would
+        bake the capture's value into the graph."""
         rows = points.shape[0]
+        if isinstance(npts, torch.Tensor) and not sharded:
+            return torch.clamp(npts, 0, rows)
         return min(max(int(npts) - comm.row_offset(rows), 0), rows)
 
-    def fit_inputs(state: AdaptiveState, points: torch.Tensor, npts: int) -> FitInputs:
+    def fit_inputs(state: AdaptiveState, points: torch.Tensor, npts) -> FitInputs:
         """Sanitize, bin and tile one padded cloud: everything the fit
         kernel and the frame's tail read."""
         with record_function("stage_rnr_czm"):
@@ -673,7 +680,7 @@ def make_frame_fn(
             patch_id=bins.patch_id,
         )
 
-    def frame_fused(state: AdaptiveState, points: torch.Tensor, npts: int):
+    def frame_fused(state: AdaptiveState, points: torch.Tensor, npts):
         fi = fit_inputs(state, points, npts)
         args = (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
                 fi.gates, fi.consts, p)
@@ -718,7 +725,7 @@ def make_frame_fn(
             fi.patch_id, fi.points[:, 0], fi.points[:, 1], fi.points[:, 2],
         )
 
-    def frame(state: AdaptiveState, points: torch.Tensor, npts: int):
+    def frame(state: AdaptiveState, points: torch.Tensor, npts):
         """The unfused engine (JAX pipeline.py:638-743)."""
         with record_function("stage_rnr_czm"):
             points = _sanitize_nonfinite(points.to(torch.float32))
@@ -792,10 +799,18 @@ def make_frame_fn(
             )
 
     if fused is False:
+        frame.eager_only = (
+            "the unfused engine reads per-patch chunk counts back to the host "
+            "(ops/onehot.py:patch_reduce), so it runs eagerly"
+        )
         return frame
     # the fit kernel's inputs for a cloud, as the frame builds them (for
     # holding the kernel against its plain version at the frame's shapes)
     frame_fused.fit_inputs = fit_inputs
+    frame_fused.eager_only = (
+        "a sharded comm exchanges tensors through the host between the "
+        "shards' launches, so a sharded frame runs eagerly" if sharded else None
+    )
     return frame_fused
 
 
@@ -807,8 +822,18 @@ def make_sequence_fn(
     (B, P, 4) stack of scans: the frame step (engine ``fused`` and ``comm``,
     as in :func:`make_frame_fn`) in order, the adaptive state threaded from
     each frame to the next, every FrameResult field stacked on a leading B
-    axis. A frame loop; capturing it as a CUDA graph is later work."""
-    return sequence_of(make_frame_fn(params, geom, device, fused, comm))
+    axis. The JAX package runs the chain as one device program; here a
+    fused engine's frame is one captured CUDA graph, replayed B times
+    (``graphs.CompiledSequence``: one graph per capacity, whatever B is;
+    on the CPU its static-buffer step runs eagerly). The unfused engine and
+    a sharded comm read the host inside a frame and run as a loop of eager
+    frames."""
+    frame = make_frame_fn(params, geom, device, fused, comm)
+    if frame.eager_only:
+        return sequence_of(frame)
+    from patchworkpp_tpu_torch.graphs import CompiledSequence
+
+    return CompiledSequence(frame, params, device)
 
 
 def sequence_of(frame):
@@ -826,3 +851,19 @@ def sequence_of(frame):
         )
 
     return sequence
+
+
+@functools.lru_cache(maxsize=8)
+def _cached_frame_fn(params: Params, device: torch.device):
+    from patchworkpp_tpu_torch.graphs import CompiledFrame
+
+    return CompiledFrame(make_frame_fn(params, device=device), params, device)
+
+
+def segment(state: AdaptiveState, points: torch.Tensor, npts, params: Params):
+    """One frame through a cached compiled step (JAX ``pipeline.py:1020-1028``):
+    ``(state, FrameResult)`` of the default engine, from a captured frame
+    kept per ``params``, device and capacity (``graphs.CompiledFrame``; on
+    the CPU its static-buffer step runs eagerly). ``state`` is not
+    modified; the result stays valid after later calls."""
+    return _cached_frame_fn(params, points.device)(state, points, npts)

@@ -20,8 +20,10 @@ capability:
 The engine is the port's :class:`PatchworkPP` on ``device`` ("cuda" unless
 the caller asks for "cpu"); without CUDA the constructor raises. The worker
 thread launches on that device (``torch.cuda.current_stream`` is per
-thread). The fit kernel is built at its first launch, so on a fresh process
-the worker's first frame builds it.
+thread). The facade's frame is a captured CUDA graph (``graphs.py``), built
+and captured at the first frame it serves, so on a fresh process the
+worker's first frame builds the fit kernel and captures the graph; a backlog
+batch of any size replays the same graph once a scan.
 
 Three behaviours differ from the JAX package's server on purpose (its
 faults, VERDICT.md "What's weak" #1, #2 and #5):
@@ -236,8 +238,8 @@ class GroundSegmentationServer:
     def _infer(self, msgs: List[CloudMsg]):
         """(result, error) for each message, in order. An exception is kept
         as that message's error; a batch whose sequence call raises runs
-        again message by message from the state it started with (the frame
-        step returns a new state, so restoring the old one undoes a run
+        again message by message from the state it started with (the
+        facade's ``state`` is a copy, and assigning it back undoes a run
         that a mixed 3/4-column batch committed before the failure)."""
         if len(msgs) == self.config.batch_max and len(msgs) > 1:
             start = self._model.state

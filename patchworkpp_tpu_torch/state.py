@@ -3,8 +3,10 @@
 The reference keeps the adapted ``elevation_thr`` / ``flatness_thr`` /
 ``sensor_height`` and four per-ring FIFO sample buffers capped at 1000
 entries as mutated members (patchworkpp.h:174-175, patchworkpp.cpp:338-375).
-Here they are tensors on the engine's device, replaced (not mutated) by every
-frame. Buffers are left-aligned, oldest first, zero past each ring's count.
+Here they are tensors on the engine's device; the frame step returns a new
+state and does not mutate its input (a captured frame, ``graphs.py``, then
+copies it into its static buffers). Buffers are left-aligned, oldest first,
+zero past each ring's count.
 
 The npz checkpoint uses the JAX package's keys, so a state file written by
 either package loads in the other.
@@ -41,6 +43,18 @@ class AdaptiveState:
     elev_cnt: torch.Tensor       # (4,) i32
     flat_buf: torch.Tensor       # (4, BUF_CAP) f32
     flat_cnt: torch.Tensor       # (4,) i32
+
+    def clone(self) -> "AdaptiveState":
+        """A copy whose tensors share no memory with this state's."""
+        return AdaptiveState(*(getattr(self, k).clone() for k in _KEYS))
+
+    def copy_(self, src: "AdaptiveState") -> "AdaptiveState":
+        """Overwrite this state's tensors in place with ``src``'s values
+        (any device; shapes must match): how a captured frame's static
+        state buffers take a new state (``graphs.py``)."""
+        for k in _KEYS:
+            getattr(self, k).copy_(getattr(src, k))
+        return self
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Checkpoint view: a flat dict of NumPy arrays (the npz keys)."""

@@ -144,12 +144,20 @@ def format_report(stages: Dict[str, float], frames: int, header: str = "") -> st
     return "\n".join(lines)
 
 
+# CUDA API calls (runtime, and the cu* launch) that put work on a stream:
+# a captured frame's launches from Python are these, a graph's kernels not
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def frame_report(events: List[Event], wall_s: float, frames: int) -> dict:
     """Per frame of a traced run of ``frames`` frames: the host time of
     each stage range, its span on the card and the device time of the
     kernels inside that span; the card's busy share of the window (kernel
-    and copy time over wall time); the count of device launches and of
-    device -> host copies; and the kernels with the most device time."""
+    and copy time over wall time); the count of device launches (kernels
+    and copies on the card), of the host's launch calls (kernel launches,
+    graph launches, copies and sets put on a stream) and of device -> host
+    copies; and the kernels with the most device time."""
     kernels = _kernels(events)
     spans = _stage_spans(events, on_device=True)
     host: Dict[str, float] = defaultdict(float)
@@ -180,6 +188,8 @@ def frame_report(events: List[Event], wall_s: float, frames: int) -> dict:
         "device_busy_ms_per_frame": busy_us / per,
         "device_busy_share": busy_us / wall_us if wall_us else 0.0,
         "device_launches_per_frame": len(kernels) / frames,
+        "host_launch_calls_per_frame": sum(
+            not e.on_device and e.name.startswith(HOST_LAUNCH_CALLS) for e in events) / frames,
         "dtoh_copies_per_frame": sum("DtoH" in k.name for k in kernels) / frames,
         "stages": stages,
         "top_kernels": [{"name": k, "device_ms_per_frame": t / per,
@@ -192,7 +202,8 @@ def print_frame_report(out: dict) -> None:
           f"{out['wall_ms_per_frame']:.3f} ms/frame, device busy "
           f"{out['device_busy_ms_per_frame']:.3f} ms/frame "
           f"(share {out['device_busy_share']:.3f}), "
-          f"{out['device_launches_per_frame']:g} device launches and "
+          f"{out['device_launches_per_frame']:g} device launches, "
+          f"{out['host_launch_calls_per_frame']:g} launch calls from the host and "
           f"{out['dtoh_copies_per_frame']:g} device->host copies per frame")
     for k, v in out["stages"].items():
         print(f"  {k}: host {v['host_ms']:.3f} ms, device span {v['device_span_ms']:.3f} ms, "

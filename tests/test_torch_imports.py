@@ -38,6 +38,7 @@ def test_port_has_the_expected_files():
         "patchworkpp_tpu_torch/params.py",
         "patchworkpp_tpu_torch/state.py",
         "patchworkpp_tpu_torch/pipeline.py",
+        "patchworkpp_tpu_torch/graphs.py",
         "patchworkpp_tpu_torch/ops/tiled_fit.py",
         "patchworkpp_tpu_torch/ops/fit_kernel_grid.py",
         "patchworkpp_tpu_torch/ops/fit_kernel.py",
