@@ -33,7 +33,9 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    captures the graph, then the state is reset), with every launch count
    set to 0 just before and read just after; the labels must equal the CPU path's on the same
    frames, each kernel's launch count must equal the frame count on its
-   path and be 0 on the other's, the final adaptive state must agree; then
+   path and be 0 on the other's, the final adaptive state must agree (the
+   default engine's thresholds, sensor height and elevation buffer bit for
+   bit); then
    the unfused engine (fused=False) for 3 frames, labels equal to the CPU
    unfused engine's; the labels that differ between the three engines are
    printed, not asserted;
@@ -82,15 +84,22 @@ Phases, in order; any failure raises and exits nonzero before the last line:
 4e. the captured frames (graphs.py): over 20 chained frames, captured ==
    eager bit for bit (every FrameResult field and the state after each
    frame) for the facade's tiled and onehot frames, both presets, the
-   crowded cloud on both engines, pipeline.segment, and a server whose
+   crowded cloud on both engines, pipeline.segment (also from two threads
+   at once, one on a side stream, 10 frames each), and a server whose
    backlog runs as sequence batches (one graph, K1 launched 20 times);
    K1 and K2 counted by name in a torch.profiler trace of 20 replays and
    the launch counters equal to those counts; then eager against captured
    in this one call, each on its own line: the frame median (CUDA
    events), the facade's host ms a frame, the short bench's scans/s and
    the server's closed-loop p50 and p95; the graph's memory pool in MB;
-   and a 24-frame sequence as the frame graph replayed 24 times against
-   the whole chain captured as one graph (ms a frame);
+   the captured tiled frame's graph node count and device operations
+   (scripts/frame_graph_probe.py, whose frame_ms times every frame of this
+   phase) beside its ms a frame; and a 24-frame sequence as the
+   frame graph replayed 24 times against the whole chain captured as one
+   graph (ms a frame);
+4f. ops.masked_patch_moments (no engine runs it) on the main scan binned
+   into its patches: the card's sums equal the CPU's bit for bit; its ms
+   a call on the card and on the host;
 5. time the three kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
    after warm-up (KS: chunk 0's 12 recorded launches replayed, and the fit
@@ -137,8 +146,12 @@ SERVER_FRAMES = 20
 # A kernel and its plain version run the same float operations in the same
 # order (nvcc's contraction off, the plain version's fused multiply-adds as
 # explicit ones), so their tables must agree bit for bit (tolerance 0).
-# CPU path vs card path, adaptive state floats: within STATE_ATOL.
+# CPU path vs card path, adaptive state floats: the tiled engine's
+# thresholds, sensor height and elevation buffer bit for bit (their sums
+# are float32 adds in a fixed order, ops.row_sum; TILED_EXACT_STATE), the
+# rest within STATE_ATOL.
 STATE_ATOL = 1e-5
+TILED_EXACT_STATE = ("sensor_height", "elevation_thr", "flatness_thr", "elev_buf")
 
 
 def compare_tables(k, ref, params, label, exact=True):
@@ -1032,6 +1045,76 @@ def _all_captured(model, label):
     return frames
 
 
+def _frame_graph_probe():
+    """scripts/frame_graph_probe.py of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "frame_graph_probe.py")
+    spec = importlib.util.spec_from_file_location("frame_graph_probe", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def moments_phase(p, cloud, card, device="cuda") -> dict:
+    """Phase 4f: ``ops.masked_patch_moments``, a public op that no engine
+    runs, at the frame's patch sizes: ``cloud`` binned into its patches at
+    capacity CAPACITY. Its sums on the card equal the CPU's bit for bit (a
+    segment's points added in point order on every device, one step a
+    rank of the largest patch); its ms a call on the card (CUDA events
+    around a call, which syncs the host once) and on the host. Raises on
+    a difference."""
+    import torch
+
+    from patchworkpp_tpu_torch.ops import bin_points, masked_patch_moments
+    from patchworkpp_tpu_torch.params import CZMGeometry
+
+    geom = CZMGeometry.create(p)
+    args = {}
+    for d in (device, "cpu"):
+        x = torch.zeros((CAPACITY, 4), device=d)
+        x[: len(cloud)] = torch.from_numpy(cloud).to(d)
+        bins = bin_points(x, len(cloud), torch.tensor(p.sensor_height, device=d), p, geom)
+        mask = bins.valid & bins.in_range & ~bins.noise
+        args[d] = (x[:, :3], mask, bins.patch_id, geom.num_patches)
+    got = masked_patch_moments(*args[device])
+    want = masked_patch_moments(*args["cpu"])
+    if not _same_bits(got.cpu(), want):
+        raise AssertionError("masked_patch_moments: the card's sums differ from the CPU's")
+    ids = args["cpu"][2][args["cpu"][1]].long()
+    largest = int(torch.bincount(ids, minlength=geom.num_patches + 1)[:-1].max())
+
+    def timed(fn, on_card):
+        """Median ms of 3 calls after a warm-up: CUDA events on the card,
+        the host clock on the CPU."""
+        t = []
+        for _ in range(4):
+            if on_card:
+                torch.cuda.synchronize()
+                ea, eb = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                ea.record()
+                fn()
+                eb.record()
+                torch.cuda.synchronize()
+                t.append(ea.elapsed_time(eb))
+            else:
+                t0 = time.perf_counter()
+                fn()
+                t.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(t[1:]))
+
+    out = {"points": int(args["cpu"][1].sum()), "segments": geom.num_patches,
+           "largest_segment": largest,
+           "card_ms": timed(lambda: masked_patch_moments(*args[device]), True),
+           "host_ms": timed(lambda: masked_patch_moments(*args["cpu"]), False)}
+    print(f"ops.masked_patch_moments at capacity {CAPACITY}: {out['points']} points in "
+          f"{out['segments']} segments, largest {largest} points; card == cpu bit for "
+          f"bit; {out['card_ms']:.3f} ms a call on the card (CUDA events), "
+          f"{out['host_ms']:.3f} ms on the host's CPU; {card}")
+    return out
+
+
 def graphs_phase(seed, scans, card, device="cuda") -> dict:
     """Phase 4e: the captured frames (graphs.py) on the card. Captured ==
     eager bit for bit over GRAPH_FRAMES chained frames (every FrameResult
@@ -1114,6 +1197,45 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
         raise AssertionError("segment's frame is not captured")
     print(f"captured == eager, pipeline.segment: {n} chained frames bit for bit")
 
+    # b2. segment from two threads at once, the second on a side stream
+    halves = [chain[: n // 2], chain[n // 2:]]
+    wants = [eager_chain(p, None, h) for h in halves]
+    got, errors = [[], []], []
+    start = threading.Barrier(2)
+
+    def seg_chain(clouds, results, stream):
+        try:
+            with torch.cuda.stream(stream):
+                st = init_state(p, dev)
+                start.wait()
+                for c in clouds:
+                    st, res = pipeline.segment(st, upload(c), len(c), p)
+                    results.append((res, st))
+                stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=seg_chain, args=(h, g, s)) for h, g, s in
+               zip(halves, got, (torch.cuda.default_stream(dev), torch.cuda.Stream(dev)))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"segment from two threads: {errors or 'a thread hung'}")
+    for i, (ref, results) in enumerate(zip(wants, got)):
+        if len(results) != len(ref):
+            raise AssertionError(f"segment thread {i}: {len(results)} of {len(ref)} frames")
+        for k, r in enumerate(results):
+            _same_frame(r, ref[k], f"segment thread {i} frame {k}")
+    print(f"pipeline.segment from two threads, one on a side stream: {n // 2} chained "
+          f"frames each, equal to the eager chains bit for bit")
+
     # c. a server whose backlog batches: every frame one replay of one graph
     srv = GroundSegmentationServer(config=ServerConfig(
         capacity=CAPACITY, queue_depth=8, batch_max=2, drop_when_full=False), device=device)
@@ -1180,20 +1302,11 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
         print(f"{label}: {n} replays traced, fit_program_kernel<{name}> {named} times on the "
               f"card, launch counters {launched}")
 
-    # e. eager against captured, in this one call
+    # e. eager against captured, in this one call (the probe script's timing)
+    probe = _frame_graph_probe()
+
     def frame_ms(fn, xs):
-        for k in range(3):
-            fn(k, xs)
-        ev = []
-        for k in range(len(xs)):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            a.record()
-            fn(k, xs)
-            b.record()
-            torch.cuda.synchronize()
-            ev.append(a.elapsed_time(b))
-        return float(np.median(ev))
+        return float(np.median(probe.frame_ms(lambda k: fn(k, xs), len(xs))))
 
     xs = [upload(c) for c in chain]
     timing = {}
@@ -1219,6 +1332,14 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
             host[mode] = float(np.median(
                 [fm.estimate_ground(c).time_taken_s for c in chain][1:]) * 1e3)
         timing[f"{label}_facade_host_ms"] = host
+        if label == "tiled":
+            graph = probe.probe(cf, xs, [len(c) for c in chain])
+            out["tiled_frame_graph"] = graph
+            print(f"captured tiled frame: {graph['graph_nodes']} graph nodes "
+                  f"({graph['graph_nodes_note'] or 'cuGraphGetNodes'}), "
+                  f"{graph['device_ops_per_frame']:g} device operations a frame, "
+                  f"{timing['tiled_frame_ms']['captured']:.4f} ms a frame (CUDA events, "
+                  f"median of {n}); {card}")
         print(f"eager vs captured, {label} frame median (CUDA events): "
               f"{timing[f'{label}_frame_ms']['eager']:.3f} ms vs "
               f"{timing[f'{label}_frame_ms']['captured']:.3f} ms; {card}")
@@ -1468,15 +1589,20 @@ def main() -> int:
             if g.ground_mask.shape != (len(s),) or not 0 < g.ground_mask.sum() < len(s):
                 raise AssertionError(f"fused={fused!r} frame {i}: implausible labels")
         st_g, st_c = gpu.state.to_numpy(), cpu.state.to_numpy()
+        exact = TILED_EXACT_STATE if fused is None else ()
+        state_err = {}
         for key in st_c:
             if st_c[key].dtype.kind == "i":
                 np.testing.assert_array_equal(st_g[key], st_c[key], err_msg=key)
             else:
+                state_err[key] = float(np.abs(st_g[key].astype(np.float64) - st_c[key]).max())
                 np.testing.assert_allclose(st_g[key], st_c[key], rtol=0,
-                                           atol=STATE_ATOL, err_msg=key)
+                                           atol=0.0 if key in exact else STATE_ATOL,
+                                           err_msg=key)
         print(f"fused={fused!r}: {frames} frames, labels equal to the cpu path, "
               f"ground {[int(r.ground_mask.sum()) for r in res[:3]]}..., "
-              f"sensor_height {gpu.sensor_height:.6f}, launches {counts}")
+              f"sensor_height {gpu.sensor_height:.6f}, launches {counts}; state card vs "
+              f"cpu max |err| {state_err} (0 required for {list(exact)})")
         return res, counts
 
     gpu_res, counts_k1 = drive(None, args.frames, "fit_grid")
@@ -1504,6 +1630,9 @@ def main() -> int:
 
     # ---- 4e. captured frames: == eager bit for bit, kernels in the replays, timing
     graphs = graphs_phase(args.seed, scans, card)
+
+    # ---- 4f. the public ops.masked_patch_moments at the frame's patch sizes
+    moments = moments_phase(p, scans[0], card)
 
     # ---- 5. timing
     kernel_ms = cuda_ms(lambda: fkg.fused_fit_grid(*fit_args, p), reps=50)
@@ -1663,7 +1792,8 @@ def main() -> int:
         "k1_k2_max_abs_diff": k1k2_err, "serving": serving,
         "ks_crowded_ms": ks_crowd_ms,
         "ks_checks": {k: v for k, v in ks_main.items() if k != "record"},
-        "references": references, "multi_device": multi, "graphs": graphs, **kernels,
+        "references": references, "multi_device": multi, "graphs": graphs,
+        "masked_patch_moments": moments, **kernels,
     }
     if args.profile:
         record["profile"] = {}

@@ -18,4 +18,7 @@ from patchworkpp_tpu_torch.models import PatchworkPP
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 from patchworkpp_tpu_torch.state import AdaptiveState, init_state
 
-__all__ = ["Params", "CZMGeometry", "PatchworkPP", "AdaptiveState", "init_state"]
+__version__ = "0.2.0"
+
+__all__ = ["Params", "CZMGeometry", "PatchworkPP", "AdaptiveState", "init_state",
+           "__version__"]

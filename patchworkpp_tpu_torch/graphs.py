@@ -44,6 +44,7 @@ eagerly, which is how the tests hold its logic to the eager chain.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -182,8 +183,11 @@ class CompiledFrame:
     is: a :class:`CapturedFrame` of ``frame`` per capacity, built at first
     use (on the CPU run eagerly). ``state`` is copied into the static
     buffers and the new state comes back as a copy, so callers can hold
-    several states (streams) and pass each in turn. Raises at construction
-    for a frame that must run eagerly on the card."""
+    several states (streams) and pass each in turn, from any thread and on
+    any CUDA stream: one call at a time holds the static buffers, and on
+    the card a call's work waits for the previous call's (an event recorded
+    on its stream after the copy-out). Raises at construction for a frame
+    that must run eagerly on the card."""
 
     def __init__(self, frame, params: Params, device="cuda") -> None:
         self._frame = frame
@@ -192,6 +196,11 @@ class CompiledFrame:
         if self.device.type == "cuda" and _refusal(frame):
             raise ValueError(f"cannot capture this frame: {_refusal(frame)}")
         self.frames: Dict[int, CapturedFrame] = {}
+        # one caller at a time on the static buffers (jax.jit's function is
+        # pure, so callers share it across threads): building a frame, and a
+        # call's copy-in, replay and copy-out, hold the lock
+        self._lock = threading.RLock()
+        self._done = None  # the last call's event on its stream (card only)
 
     @property
     def is_captured(self) -> bool:
@@ -201,19 +210,32 @@ class CompiledFrame:
     def captured(self, capacity: int) -> CapturedFrame:
         """The captured frame of this capacity (built, and on the card
         captured, at its first use)."""
-        cf = self.frames.get(capacity)
-        if cf is None:
-            cf = CapturedFrame(self._frame, capacity, init_state(self._params, self.device))
+        with self._lock:
+            cf = self.frames.get(capacity)
+            if cf is None:
+                cf = CapturedFrame(self._frame, capacity, init_state(self._params, self.device))
+                if self.device.type == "cuda":
+                    cf.capture()
+                self.frames[capacity] = cf
+            return cf
+
+    def _locked(self, capacity: int, state: AdaptiveState, run):
+        """``run(cf)`` on the captured frame of ``capacity`` with ``state``
+        copied in; returns (a copy of the new state, ``run``'s result)."""
+        with self._lock:
+            cf = self.captured(capacity)
+            if self._done is not None:
+                torch.cuda.current_stream(self.device).wait_event(self._done)
+            cf.state.copy_(state)
+            res = run(cf)
+            new = cf.state.clone()
             if self.device.type == "cuda":
-                cf.capture()
-            self.frames[capacity] = cf
-        return cf
+                self._done = torch.cuda.Event()
+                self._done.record(torch.cuda.current_stream(self.device))
+            return new, res
 
     def __call__(self, state: AdaptiveState, points: torch.Tensor, npts):
-        cf = self.captured(points.shape[0])
-        cf.state.copy_(state)
-        res = cf(points, npts)
-        return cf.state.clone(), res
+        return self._locked(points.shape[0], state, lambda cf: cf(points, npts))
 
 
 class CompiledSequence(CompiledFrame):
@@ -222,7 +244,4 @@ class CompiledSequence(CompiledFrame):
     frame of capacity P replayed B times (one graph whatever B is)."""
 
     def __call__(self, state: AdaptiveState, stack: torch.Tensor, npts):
-        cf = self.captured(stack.shape[1])
-        cf.state.copy_(state)
-        res = cf.sequence(stack, npts)
-        return cf.state.clone(), res
+        return self._locked(stack.shape[1], state, lambda cf: cf.sequence(stack, npts))

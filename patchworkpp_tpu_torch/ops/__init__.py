@@ -1,4 +1,7 @@
-"""Tensor ops of the PyTorch port, plus two helpers shared across them."""
+"""Tensor ops of the PyTorch port: the public names of the JAX package's
+``ops`` (``__all__``), and the rounding helpers shared across the ops
+(``f32``, ``div``, ``fma``, ``row_sum``, ...), which the submodules import
+from here."""
 
 from __future__ import annotations
 
@@ -117,18 +120,77 @@ def seq_sum(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def row_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over a last axis of 128 (any multiple of 32) in XLA:CPU's order.
-
-    XLA:CPU rewrites a long row reduction into a reduce-window of 32 wide
-    windows and a reduction of the window sums, and each loop adds its
-    elements one after another to an accumulator that starts at 0. The JAX
-    package's tile sums (``jnp.sum(..., axis=1)`` over a 128-lane tile in
-    ops/tiled_fit.py) therefore round as
-    ``(((0 + w0) + w1) + w2) + w3`` with ``w = ((0 + v0) + v1) + ... + v31``
-    over each window; the fit kernels add a tile's rows in this order too."""
+def _windows(v: torch.Tensor) -> torch.Tensor:
+    """One level of ``row_sum``: (..., n) -> (..., k, width) windows whose
+    sums, each from 0 in order, are the level's sums (k == 1 and the row
+    itself at the last level, n <= 32)."""
     n = v.shape[-1]
-    return seq_sum(seq_sum(v.reshape(*v.shape[:-1], n // ROW_WINDOW, ROW_WINDOW)))
+    if n <= ROW_WINDOW:
+        return v[..., None, :]
+    pad = -n % ROW_WINDOW
+    lo, hi = pad // 2, pad - pad // 2
+    if n + pad == 2 * ROW_WINDOW:
+        # [v_0 .. v_(31-lo)] and [v_(32-lo) ..], the shorter one ended by 0
+        if hi > lo:
+            v = torch.nn.functional.pad(v, (0, hi - lo))
+        return v.reshape(*v.shape[:-1], 2, -1)
+    if pad:
+        v = torch.nn.functional.pad(v, (lo, hi))
+    return v.reshape(*v.shape[:-1], -1, ROW_WINDOW)
+
+
+def row_sums(*vs: torch.Tensor) -> list:
+    """``[row_sum(v) for v in vs]``, each level's windows of all the
+    tensors summed in one sequence of adds: the windows are padded on the
+    right with zeros to the widest and stacked, so a level costs the steps
+    of its widest window, not their total. A trailing zero changes no bit
+    (see ``row_sum``), and each window's sum is its own."""
+    vs = list(vs)
+    out = [None] * len(vs)
+    while any(o is None for o in out):
+        todo = [i for i, o in enumerate(out) if o is None]
+        wins = [_windows(vs[i]) for i in todo]
+        if len(wins) == 1:
+            sums = [seq_sum(wins[0])]
+        else:
+            width = max(w.shape[-1] for w in wins)
+            flat = torch.cat([
+                torch.nn.functional.pad(w, (0, width - w.shape[-1])).reshape(-1, width)
+                for w in wins])
+            sums = [s.reshape(w.shape[:-1]) for s, w in
+                    zip(seq_sum(flat).split([w[..., 0].numel() for w in wins]), wins)]
+        for i, s in zip(todo, sums):
+            if vs[i].shape[-1] <= ROW_WINDOW:
+                out[i] = s[..., 0]
+            else:
+                vs[i] = s
+    return out
+
+
+def row_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, of any length, in XLA:CPU's order.
+
+    XLA:CPU's tree-reduction rewriter turns a row longer than 32 into a
+    reduce-window of 32-wide windows: the row is padded with zeros to a
+    multiple of 32, ``floor(pad / 2)`` on the left and the rest on the
+    right, and each window is summed one element after another from 0.
+    This repeats on the window sums until 32 or fewer are left, and those
+    are summed one after another. Every loop adds its elements in order to
+    an accumulator that starts at 0.
+
+    So the JAX package's tile sums (``jnp.sum(..., axis=1)`` over a 128-lane
+    tile in ops/tiled_fit.py) round as ``(((0 + w0) + w1) + w2) + w3`` with
+    ``w = ((0 + v0) + v1) + ... + v31`` over each window; the fit kernels
+    add a tile's rows in this order too. A (1064,) ring buffer of the
+    adaptive state sums as 34 windows (12 zeros on each side), then 2
+    windows of those (15 zeros on each side), then the 2 sums. Float32
+    adds in a fixed order: the same bits on every device.
+
+    A padding zero changes no bit of a sum from 0, before or after the
+    values (the accumulator is never -0), so two windows are summed from
+    their first value: 17 steps, not 32, for those 2 windows of 34 sums
+    (each step is one tensor op, a node of a captured frame)."""
+    return row_sums(v)[0]
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
@@ -146,3 +208,33 @@ def tree_sum(v: torch.Tensor) -> torch.Tensor:
         h = v.shape[-1] // 2
         v = v[..., :h] + v[..., h:]
     return v[..., 0]
+
+
+# The public op surface of the JAX package's ops/__init__.py. Imported after
+# the helpers above, which these submodules import from this package.
+from patchworkpp_tpu_torch.ops.binning import PointBins, bin_points  # noqa: E402
+from patchworkpp_tpu_torch.ops.eigen3 import eigh3x3_descending  # noqa: E402
+from patchworkpp_tpu_torch.ops.moments import (  # noqa: E402
+    masked_patch_moments,
+    moment_features,
+)
+from patchworkpp_tpu_torch.ops.onehot import SPAD, patch_lookup, patch_reduce  # noqa: E402
+from patchworkpp_tpu_torch.ops.segments import (  # noqa: E402
+    patch_counts,
+    segment_rank,
+    sort_by_patch,
+)
+
+__all__ = [
+    "bin_points",
+    "PointBins",
+    "sort_by_patch",
+    "segment_rank",
+    "patch_counts",
+    "SPAD",
+    "patch_lookup",
+    "patch_reduce",
+    "masked_patch_moments",
+    "moment_features",
+    "eigh3x3_descending",
+]

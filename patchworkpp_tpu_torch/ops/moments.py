@@ -1,5 +1,6 @@
 """Masked per-patch second-order moments, the reduction behind every plane
-fit of the unfused engine (port of ``ops/moments.py``).
+fit of the unfused engine (port of ``ops/moments.py``), and the public
+``moment_features`` / ``masked_patch_moments`` of the JAX package's ops.
 
 The 10 monomials [1, x, y, z, xx, xy, xz, yy, yz, zz] are taken on
 coordinates shifted by a static per-patch offset, so the f32 E[xx] - E[x]^2
@@ -11,6 +12,56 @@ from __future__ import annotations
 import torch
 
 from patchworkpp_tpu_torch.ops import fma
+
+
+def moment_features(q: torch.Tensor) -> torch.Tensor:
+    """(P, 3) shifted coordinates -> (P, 10) monomials
+    [1, x, y, z, xx, xy, xz, yy, yz, zz] (products only, so every device
+    gives the JAX package's bits)."""
+    x, y, z = q[:, 0], q[:, 1], q[:, 2]
+    return torch.stack(
+        [torch.ones_like(x), x, y, z, x * x, x * y, x * z, y * y, y * z, z * z], dim=1
+    )
+
+
+def masked_patch_moments(
+    q: torch.Tensor,
+    mask: torch.Tensor,
+    patch_id: torch.Tensor,
+    num_segments: int,
+    indices_are_sorted: bool = True,
+) -> torch.Tensor:
+    """(num_segments, 10) per-patch sums of ``moment_features(q)`` over the
+    points where ``mask`` (P,) is true; ``patch_id`` (P,) holds each point's
+    segment, and ids outside [0, num_segments) are dropped.
+
+    The JAX package's ``jax.ops.segment_sum`` is a scatter-add, which
+    XLA:CPU runs one point after another: each segment's sum is its rows
+    added in point order to a 0. Here each segment's rows are grouped by a
+    stable sort (which keeps that order) and added one rank at a time over
+    all segments at once, so the sums are the same on every device
+    (``index_add_`` on the card adds with atomics, in no fixed order).
+    ``indices_are_sorted`` is the JAX signature's hint; the order of the
+    sums does not depend on it.
+
+    Cost: a host sync for the largest segment's size, then one step of
+    six small tensor ops per rank of it. A 64-beam scan binned at capacity
+    131072 has a patch of ~7.8k points, so a call makes ~47k launches on
+    the card (``chip_smoke.py`` phase 4f times it; PERF.md). No engine
+    calls it: the unfused engine sums its moments with ``ops.patch_reduce``."""
+    feats = moment_features(q) * mask[:, None].to(q.dtype)
+    pid = patch_id.to(torch.int64)
+    pid = torch.where((pid >= 0) & (pid < num_segments), pid, num_segments)
+    pid_s, order = torch.sort(pid, stable=True)
+    rows = feats[order]
+    counts = torch.bincount(pid_s, minlength=num_segments + 1)[:num_segments]
+    first = torch.searchsorted(pid_s, torch.arange(num_segments, device=pid.device))
+    acc = torch.zeros((num_segments, 10), dtype=feats.dtype, device=feats.device)
+    last = max(rows.shape[0] - 1, 0)
+    for k in range(int(counts.max()) if num_segments else 0):
+        row = rows[torch.clamp_max(first + k, last)]
+        acc = torch.where((k < counts)[:, None], acc + row, acc)
+    return acc
 
 
 def masked_moment_features_cols(qx, qy, qz, mask_f) -> torch.Tensor:

@@ -16,6 +16,9 @@ import torch
 
 from patchworkpp_tpu_torch.ops import tree_sum
 
+# The padded patch space: 504 patches and the overflow bucket, padded to
+# 512 (the JAX package's ``ops/onehot.py:SPAD``; ``CZMGeometry.spad``).
+SPAD = 512
 CHUNK = 128
 
 

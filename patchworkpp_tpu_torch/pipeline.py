@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from patchworkpp_tpu_torch.ops import div, f32, fma, plane_dist, seq_sum, sqrt, tree_sum
+from patchworkpp_tpu_torch.ops import div, f32, fma, plane_dist, row_sums, seq_sum, sqrt
 from patchworkpp_tpu_torch.ops.binning import bin_points, factored_patch_counts
 from patchworkpp_tpu_torch.ops.eigen3 import eigh3x3_descending
 from patchworkpp_tpu_torch.ops.fit_kernel import (
@@ -278,18 +278,30 @@ def _sanitize_nonfinite(points: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[:, None], points, torch.zeros((), device=points.device))
 
 
-def _masked_mean_stdev_rows(vals: torch.Tensor, mask: torch.Tensor):
-    """Row-batched reference calc_mean_stdev (:557-566) over the last axis:
-    rows with n <= 1 give zeros, else the sample stdev (n - 1)."""
-    m = mask.to(torch.float32)
-    n = tree_sum(m)
-    vals = torch.where(mask, vals, torch.zeros((), device=vals.device))
-    mean = tree_sum(vals) / torch.clamp_min(n, 1.0)
-    d = vals - mean[..., None]
-    var = tree_sum(d * d * m) / torch.clamp_min(n - 1.0, 1.0)
-    ok = n > 1
-    z = torch.zeros_like(mean)
-    return torch.where(ok, mean, z), torch.where(ok, sqrt(var), z), n
+def _masked_mean_stdev_rows(*groups):
+    """Row-batched reference calc_mean_stdev (:557-566) over the last axis
+    of each (vals, mask) group: rows with n <= 1 give zeros, else the
+    sample stdev (n - 1). Returns one (mean, stdev, n) per group.
+
+    The two float sums are ``ops.row_sum``, the order in which XLA:CPU
+    compiles the JAX package's ``jnp.sum`` of these rows inside the frame,
+    the groups' window steps shared (``ops.row_sums``: no bit changes, and
+    each step is a node of the captured frame); the count is an exact
+    integer sum, so any order gives its bits."""
+    ms = [mask.to(torch.float32) for _, mask in groups]
+    ns = [m.sum(dim=-1) for m in ms]
+    zero = torch.zeros((), device=ms[0].device)
+    vals = [torch.where(mask, v, zero) for v, mask in groups]
+    means = [s / torch.clamp_min(n, 1.0) for s, n in zip(row_sums(*vals), ns)]
+    ds = [v - mean[..., None] for v, mean in zip(vals, means)]
+    sq = [d * d * m for d, m in zip(ds, ms)]
+    out = []
+    for mean, s, n in zip(means, row_sums(*sq), ns):
+        ok = n > 1
+        z = torch.zeros_like(mean)
+        var = s / torch.clamp_min(n - 1.0, 1.0)
+        out.append((torch.where(ok, mean, z), torch.where(ok, sqrt(var), z), n))
+    return out
 
 
 def _compact_rows(vals: torch.Tensor, acc_mask: torch.Tensor) -> torch.Tensor:
@@ -346,10 +358,16 @@ def _update_state(
     ring_acc: torch.Tensor,
     ring_elev: torch.Tensor,
     ring_flat: torch.Tensor,
-) -> AdaptiveState:
+    *also,
+):
     """End-of-frame adaptation (reference update_elevation_thr /
     update_flatness_thr :338-375): the ring-0 sensor height calibration
-    and the flatness ``break`` freeze, all rings as one batched op set."""
+    and the flatness ``break`` freeze, all rings as one batched op set.
+
+    ``also`` holds further (vals, mask) row groups of the frame (TGR's),
+    whose statistics share the buffers' sums (see
+    ``_masked_mean_stdev_rows``). Returns the new state and one
+    (mean, stdev, n) per group of ``also``."""
     n_roi = p.num_rings_of_interest
     cap = state.elev_buf.shape[1]
     w = ring_elev.shape[1]
@@ -366,17 +384,6 @@ def _update_state(
         p.max_elevation_storage,
         do_trim=torch.ones(n_roi, dtype=torch.bool, device=dev), w=w,
     )
-    mean_e, stdev_e, _ = _masked_mean_stdev_rows(
-        buf_pre_e, iota[None, :] < n_tot_e[:, None]
-    )
-    # ring 0 keeps mean + 3 stdev, the others mean + 2 stdev
-    factor = torch.where(torch.arange(n_roi, device=dev) == 0, 3.0, 2.0)
-    elev_thr = state.elevation_thr.clone()
-    elev_thr[:n_roi] = torch.where(
-        n_tot_e > 0, mean_e + factor * stdev_e, state.elevation_thr[:n_roi]
-    )
-    sh = torch.where(n_tot_e[0] > 0, -mean_e[0], state.sensor_height)
-
     # flatness: a starved ring freezes itself and every later ring
     n_tot_pre = state.flat_cnt[:n_roi] + k
     do = torch.cumsum((n_tot_pre <= 1).to(torch.int32), dim=0) == 0
@@ -384,9 +391,24 @@ def _update_state(
         state.flat_buf[:n_roi], state.flat_cnt[:n_roi], flat_c, k,
         p.max_flatness_storage, do_trim=do, w=w,
     )
-    mean_f, stdev_f, _ = _masked_mean_stdev_rows(
-        buf_pre_f, iota[None, :] < n_tot_f[:, None]
+    # both buffers' statistics as one batch of rows (each row's sums are
+    # its own, so batching changes no bit)
+    (mean, stdev, _), *also_stats = _masked_mean_stdev_rows(
+        (torch.cat([buf_pre_e, buf_pre_f]),
+         iota[None, :] < torch.cat([n_tot_e, n_tot_f])[:, None]),
+        *also,
     )
+    mean_e, mean_f = mean[:n_roi], mean[n_roi:]
+    stdev_e, stdev_f = stdev[:n_roi], stdev[n_roi:]
+
+    # ring 0 keeps mean + 3 stdev, the others mean + 2 stdev, the multiply
+    # fused into the add as XLA:CPU compiles it
+    factor = torch.where(torch.arange(n_roi, device=dev) == 0, 3.0, 2.0)
+    elev_thr = state.elevation_thr.clone()
+    elev_thr[:n_roi] = torch.where(
+        n_tot_e > 0, fma(factor, stdev_e, mean_e), state.elevation_thr[:n_roi]
+    )
+    sh = torch.where(n_tot_e[0] > 0, -mean_e[0], state.sensor_height)
     flat_thr = state.flatness_thr.clone()
     flat_thr[:n_roi] = torch.where(
         do, mean_f + stdev_f, state.flatness_thr[:n_roi]
@@ -405,7 +427,7 @@ def _update_state(
         elev_cnt=_set(state.elev_cnt, cnt_new_e),
         flat_buf=_set(state.flat_buf, buf_post_f),
         flat_cnt=_set(state.flat_cnt, cnt_new_f),
-    )
+    ), also_stats
 
 
 FUSED_MODES = (False, "grid", "grid_iota", "onehot", "tiled")
@@ -558,11 +580,16 @@ def make_frame_fn(
                 ring_ids[None, :] <= ring_ids[:, None]
             )  # (target ring, source ring)
             m = ring_acc[None, :, :] & include[:, :, None]
-            mean_f, stdev_f, _ = _masked_mean_stdev_rows(
-                ring_flat[None].expand(m.shape).reshape(n_roi, -1),
-                m.reshape(n_roi, -1),
-            )
-            mu = (mean_f + 1.5 * stdev_f)[:, None]
+            tgr_rows = ((ring_flat[None].expand(m.shape).reshape(n_roi, -1),
+                         m.reshape(n_roi, -1)),)
+        else:
+            tgr_rows = ()
+        # TGR's sums share the state update's steps (neither reads the other)
+        new_state, tgr_stats = _update_state(
+            state, p, ring_acc, ring_elev, ring_flat, *tgr_rows)
+        if p.enable_TGR:
+            (mean_f, stdev_f, _), = tgr_stats
+            mu = fma(stdev_f, 1.5, mean_f)[:, None]  # contracted by XLA:CPU
             F = ring_flat
             # exp in float64, rounded: the float32 exp of CPU and CUDA
             # libraries differ in the last ulp
@@ -574,8 +601,6 @@ def make_frame_fn(
             revert_ring = ring_cand & (prob_line * prob_flat > 0.5)
             for ci, (a, b) in enumerate(tables.ring_slices):
                 revert_patch[a:b] = revert_ring[ci, : b - a]
-
-        new_state = _update_state(state, p, ring_acc, ring_elev, ring_flat)
 
         # ---- per-point labels in ORIGINAL order (C13): replay the peel
         # tests and the final distance test against the per-patch tables.
@@ -865,5 +890,7 @@ def segment(state: AdaptiveState, points: torch.Tensor, npts, params: Params):
     ``(state, FrameResult)`` of the default engine, from a captured frame
     kept per ``params``, device and capacity (``graphs.CompiledFrame``; on
     the CPU its static-buffer step runs eagerly). ``state`` is not
-    modified; the result stays valid after later calls."""
+    modified; the result stays valid after later calls. Threads may call it
+    at once, each on any CUDA stream: the frame takes one call at a time,
+    and on the card a call's work follows the previous call's."""
     return _cached_frame_fn(params, points.device)(state, points, npts)

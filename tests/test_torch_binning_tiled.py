@@ -27,7 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from patchworkpp_tpu.ops.binning import bin_points as j_bin_points
 from patchworkpp_tpu.ops.binning import factored_patch_counts as j_counts

@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import patchworkpp_tpu.state as jstate
 from patchworkpp_tpu.params import Params as JParams

@@ -15,6 +15,8 @@ import os
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 import patchworkpp_tpu.io.kitti as j_kitti
 import patchworkpp_tpu_torch.io.kitti as kitti
 from patchworkpp_tpu_torch.cli import (

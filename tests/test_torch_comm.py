@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from patchworkpp_tpu.parallel.point_sharded import MeshComm as JMeshComm
 from patchworkpp_tpu.pipeline import FrameComm as JFrameComm

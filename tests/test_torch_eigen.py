@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from patchworkpp_tpu.ops import trig as jtrig
 from patchworkpp_tpu.ops.eigen3 import eig3_plane_columns as j_eig

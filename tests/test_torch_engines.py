@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import patchworkpp_tpu.state as jstate
 import patchworkpp_tpu_torch.pipeline as tpipe
@@ -30,7 +30,6 @@ from patchworkpp_tpu.pipeline import make_frame_fn as j_make_frame_fn
 from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
 from test_fuzz_parity import CAP, synth_cloud
 from test_torch_frame import (  # noqa: F401
-    STATE_ATOL,
     _assert_state_close,
     _chain,
     _one_torch_thread,
@@ -41,8 +40,10 @@ from test_torch_frame import (  # noqa: F401
 # engines' (one-hot dots), so their covariances, and the flatness state
 # (smallest eigenvalues) built from them, agree to a few ulp of the sums
 # through Cardano's small-root conditioning; the largest difference seen is
-# 1.2e-6 (the unfused engine).
-ENGINE_STATE_ATOL = {**STATE_ATOL, "flatness_thr": 1e-5, "flat_buf": 1e-5}
+# 1.2e-6 (the unfused engine). Their sums depend on the host (ROADMAP,
+# queue 3), so every state float keeps 1e-5.
+ENGINE_STATE_ATOL = {"sensor_height": 1e-5, "elevation_thr": 1e-5, "elev_buf": 1e-5,
+                     "flatness_thr": 1e-5, "flat_buf": 1e-5}
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,8 @@ import sys
 
 import pytest
 
+pytest.importorskip("torch")
+
 from patchworkpp_tpu.cli import demo_visualize as j_demo
 from patchworkpp_tpu.cli import eval_semantickitti as j_eval
 from patchworkpp_tpu_torch.cli import demo_visualize, eval_semantickitti

@@ -19,7 +19,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from patchworkpp_tpu.models import PatchworkPP as JPatchworkPP
 from patchworkpp_tpu.models.patchworkpp import _pack_result as j_pack

@@ -36,7 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from patchworkpp_tpu.ops.onehot import patch_lookup as j_patch_lookup
 from patchworkpp_tpu.ops.pallas import fit_kernel_grid as j_fkg

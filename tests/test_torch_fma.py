@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from patchworkpp_tpu_torch.ops import fma, plane_dist, row_sum, sq_sum
 

@@ -4,13 +4,16 @@ seeded synthetic clouds (tests/test_fuzz_parity.py:synth_cloud) at capacity
 131072, and the port facade's contract.
 
 Labels must be equal, fresh and through adapted frames. Adaptive-state
-counts must be equal. State floats: sensor height and the elevation buffer
-are plane centroids, equal to a few float32 ulp (atol 1e-5 m); the flatness
-buffer holds each patch's smallest covariance eigenvalue, which the port
-computes with XLA:CPU's contractions (ops/eigen3.py) and which therefore
-holds the JAX package's bits; the flatness threshold is its mean plus
-stdev, a few ulp apart (the largest difference seen is 1.9e-9), so both
-take atol 1e-8.
+counts must be equal, and so must the state's floats, bit for bit: the
+thresholds and the sensor height are the buffers' mean and stdev, which
+the port sums in XLA:CPU's order (``ops.row_sum``) with the multiply-add
+XLA:CPU fuses (``ops.fma``; tests/test_torch_state_update.py). The
+elevation buffer holds plane centroids from the fit table, equal too. The
+flatness buffer holds each patch's smallest eigenvalue, which the JAX
+frame's tail recomputes from the covariance with other contractions than
+the port's fit program (equal to ``jax.jit`` of the eigensolver alone);
+one such value differs on frame 6 of the 64-beam chain (ROADMAP, queue 3),
+so that buffer keeps atol 1e-8.
 
 On the boundary-probe clouds (``exact_edges=True``) the port bins every
 point as the JAX package does (ops/binning.py rounds each step as XLA:CPU
@@ -23,7 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import patchworkpp_tpu.state as jstate
 import patchworkpp_tpu_torch.pipeline as tpipe
@@ -37,8 +40,8 @@ from patchworkpp_tpu_torch.ops.binning import bin_points
 from patchworkpp_tpu_torch.io.synthetic import CAPACITY, make_scan
 from test_fuzz_parity import CAP, synth_cloud
 
-STATE_ATOL = {"sensor_height": 1e-5, "elevation_thr": 1e-5, "elev_buf": 1e-5,
-              "flatness_thr": 1e-8, "flat_buf": 1e-8}
+STATE_ATOL = {"sensor_height": 0.0, "elevation_thr": 0.0, "elev_buf": 0.0,
+              "flatness_thr": 0.0, "flat_buf": 1e-8}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -26,6 +26,8 @@ import os
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 from conftest import SCAN_NAMES
 from patchworkpp_tpu.models import PatchworkPP as JPatchworkPP
 from patchworkpp_tpu_torch import Params, PatchworkPP

@@ -20,7 +20,9 @@ at capacity 8192.
   last_result survives the next frame.
 - Capture refuses the unfused engine, a sharded comm, a chunked frame and
   buffers on the CPU; it never runs eagerly in their place.
-- ``pipeline.segment`` equals the JAX package's ``segment``.
+- ``pipeline.segment`` equals the JAX package's ``segment``, and two
+  threads calling it at once get what the same calls made one after
+  another get.
 - The frame report counts the host's launch calls (a replay's one graph
   launch, not the graph's kernels) apart from the card's launches.
 
@@ -34,7 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import patchworkpp_tpu.pipeline as jpipe
 import patchworkpp_tpu.state as jstate
@@ -328,6 +330,61 @@ def test_segment_matches_jax_segment():
                                           err_msg=label)
             _assert_state_close(js, ts_new, label)
             ts = ts_new
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_segment_from_two_threads_equals_serial_calls(device):
+    """Two threads each chain 6 frames of their own clouds through
+    pipeline.segment with equal Params (so one shared compiled frame),
+    started together; each thread's results and states equal those of the
+    same calls made one after another. On the card the second thread
+    runs on a side stream."""
+    import contextlib
+    import sys
+    import threading
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py makes this check on the card)")
+    p = Params()
+    streams = [_clouds(seed, 6) for seed in (0, 3)]
+
+    def chain(clouds, out, start=None, stream=None):
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            st = init_state(p, device=device)
+            if start is not None:
+                start.wait()
+            for cloud in clouds:
+                pts = torch.from_numpy(_padded(cloud)).to(device)
+                st, res = tpipe.segment(st, pts, len(cloud), p)
+                out.append((st, res))
+            if stream is not None:
+                stream.synchronize()
+
+    serial = [[], []]
+    for clouds, out in zip(streams, serial):
+        chain(clouds, out)
+    together = [[], []]
+    start = threading.Barrier(2)
+    side = [None, torch.cuda.Stream() if device == "cuda" else None]
+    threads = [threading.Thread(target=chain, args=(clouds, out, start, stream))
+               for clouds, out, stream in zip(streams, together, side)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)  # hand the interpreter over often
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    for i, (want, got) in enumerate(zip(serial, together)):
+        assert len(got) == len(want) == 6, f"thread {i}"
+        for k, ((ws, wr), (gs, gr)) in enumerate(zip(want, got)):
+            _assert_results_equal(gr, wr, f"thread {i} frame {k}")
+            _assert_states_equal(ws, gs, f"thread {i} frame {k}")
 
 
 def test_frame_report_counts_host_launch_calls():

@@ -14,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "patchworkpp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "gpu_parity.py",
-    ROOT / "scripts" / "torch_multiproc_parity.py"]
+    ROOT / "scripts" / "torch_multiproc_parity.py", ROOT / "scripts" / "frame_graph_probe.py"]
 
 
 def _imported_modules(path: Path):
@@ -91,3 +91,21 @@ def test_port_has_the_expected_files():
 def test_no_jax_import(path):
     bad = sorted({m for m in _imported_modules(path) if _forbidden(m)})
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_public_names_cover_the_jax_packages():
+    """The port's top-level and ``ops`` ``__all__`` hold every name of the
+    JAX package's (``__version__`` included), and each name resolves."""
+    pytest.importorskip("torch")
+    import patchworkpp_tpu
+    import patchworkpp_tpu.ops
+    import patchworkpp_tpu_torch
+    import patchworkpp_tpu_torch.ops
+
+    for jax_mod, port_mod in ((patchworkpp_tpu, patchworkpp_tpu_torch),
+                              (patchworkpp_tpu.ops, patchworkpp_tpu_torch.ops)):
+        missing = set(jax_mod.__all__) - set(port_mod.__all__)
+        assert not missing, f"{port_mod.__name__} lacks {sorted(missing)}"
+        for name in port_mod.__all__:
+            assert hasattr(port_mod, name), (port_mod.__name__, name)
+    assert patchworkpp_tpu_torch.__version__ == patchworkpp_tpu.__version__

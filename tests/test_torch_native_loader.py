@@ -19,6 +19,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 from patchworkpp_tpu_torch.io import NativeScanLoader
 from patchworkpp_tpu_torch.io import native_loader
 from patchworkpp_tpu_torch.io.kitti import pad_cloud, read_bin

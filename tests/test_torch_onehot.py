@@ -23,7 +23,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from patchworkpp_tpu.ops.pallas import fit_kernel as j_fk
 from patchworkpp_tpu.params import Params as JParams

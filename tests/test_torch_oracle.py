@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 from patchworkpp_tpu.oracle import NumpyPatchworkpp as JOracle
 from patchworkpp_tpu.params import Params as JParams
 from patchworkpp_tpu_torch import Params, PatchworkPP

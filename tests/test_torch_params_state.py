@@ -8,7 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import patchworkpp_tpu.params as jparams
 import patchworkpp_tpu.state as jstate
