@@ -7,8 +7,10 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    fit kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu, K2 from
    csrc/fit_onehot.cu (both the fit program of csrc/fit_program.cuh, with
    their own per-patch sums) and KS, the sharded fit, from
-   csrc/fit_sharded.cu (the same program cut at its cross-shard points),
-   with one nvcc each started together (build time, ptxas reports);
+   csrc/fit_sharded.cu (the same program for sharded points: a cluster of
+   CTAs a patch across the chunks of one process, or launches cut at the
+   cross-shard points), with one nvcc each started together (build time,
+   ptxas reports);
 2. make a synthetic KITTI-scale scan from --seed (io/synthetic.py: 64
    beams over 360 deg, a tilted noisy ground plane, walls, boxes, reflected
    noise below ground, points out of range);
@@ -19,13 +21,19 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    on a cloud whose processed patches hold one tile each; K1 also on a
    small cloud with num_iter=4 (K2 refuses it); on each cloud K2's integer
    columns must equal K1's;
-3b. hold KS against its plain version, tiled_fit(comm=...), on the card:
-   the scan and the crowded-patch cloud at capacity 131072 as 2 and as 4
+3b. hold KS's two routes against their plain versions on the card: the
+   scan and the crowded-patch cloud at capacity 131072 as 2, 4 and 8
    chunks of the in-process transport (parallel/chunked.py), every chunk's
-   table bit for bit, KS launching its stated count (12) a chunk; chunk 0's
-   launches of the 2-chunk run are recorded and replayed back to back (the
-   kernel time) and through the plain phases (which must give the same
-   table);
+   table bit for bit; the cluster route (the default for such chunks: one
+   launch for the chunk group) against tiled_fit(comm=...) and its own
+   plain version, launching once a frame, the phase route (forced) against
+   tiled_fit(comm=...), launching its stated count (12) a chunk; chunk 0's
+   phase launches of the 2-chunk run are recorded and replayed back to
+   back (the phase route's kernel time) and through the plain phases
+   (which must give the same table); then KS built with PPK_CLUSTER_CHECKS
+   (each cluster's CTAs trap unless they hold the same plane and alive
+   after every pass) on the scan's 2, 4 and 8 chunks, equal to the release
+   build;
 4. drive the main paths through PatchworkPP(...).estimate_ground over
    --frames state-chained frames: the default engine (K1) and
    fused="onehot" (K2), each a captured CUDA graph replayed once a frame
@@ -35,7 +43,7 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    frames, each kernel's launch count must equal the frame count on its
    path and be 0 on the other's, the final adaptive state must agree (the
    default engine's thresholds, sensor height and elevation buffer bit for
-   bit); then
+   bit, and its whole state after frame 6 bit for bit); then
    the unfused engine (fused=False) for 3 frames, labels equal to the CPU
    unfused engine's; the labels that differ between the three engines are
    printed, not asserted;
@@ -71,8 +79,9 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the same frames and first-epoch labels, their scans/s printed;
 4d. the multi-device layer (patchworkpp_tpu_torch/parallel/), on
    make_scan(seed, 0..2) chained at capacity 131072: PatchworkPP(chunks=2)
-   on the card (KS 12 launches a chunk a frame, K1 and K2 none, the plain
-   tiled_fit never called) equal to the CPU chunked path bit for bit and
+   on the card (KS's cluster route, 1 launch a frame for both chunks, K1
+   and K2 none, the plain tiled_fit never called) equal to the CPU chunked
+   path bit for bit and
    its labels equal to the card's K1 frame (a chunks=1 control launches K1
    once a frame and nothing else); the chunked frame timed with CUDA
    events; then two gloo ranks, both on this card, in their own processes
@@ -102,8 +111,9 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    a call on the card and on the host;
 5. time the three kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
-   after warm-up (KS: chunk 0's 12 recorded launches replayed, and the fit
-   stage of a chunks=2 frame, KS against tiled_fit(comm)); print K1's time
+   after warm-up (KS: the cluster route on 2, 4 and 8 chunks, the phase
+   route as chunk 0's 12 recorded launches replayed, and the fit stage of
+   a chunks=2 frame for both routes and tiled_fit(comm)); print K1's time
    per walk of the largest patch over its tiles (kernel ms / (tiles x
    walks)) and the kernels JSON line;
 6. print {"ok": true, "device": {...}} as the last line.
@@ -152,6 +162,12 @@ SERVER_FRAMES = 20
 # rest within STATE_ATOL.
 STATE_ATOL = 1e-5
 TILED_EXACT_STATE = ("sensor_height", "elevation_thr", "flatness_thr", "elev_buf")
+# The tiled engine's whole state after this frame (index) of the 64-beam
+# chain is held card vs CPU path bit for bit: the frame where the JAX tiled
+# engine's flatness first differs from the port's, by the order its unstable
+# sort leaves tied rows in (ROADMAP queue 3; the port sorts stably on both
+# devices, so the card and the CPU agree)
+CHECKED_FRAME = 6
 
 
 def compare_tables(k, ref, params, label, exact=True):
@@ -252,11 +268,15 @@ class PhaseRecorder:
 
 
 def sharded_fit_phase(p, cloud, label, device="cuda") -> dict:
-    """Phase 3b: KS (ops/sharded_fit.py) against the plain sharded fit,
-    ``tiled_fit(comm=...)``, on the card: ``cloud`` at capacity 131072 as 2
-    and as 4 chunks of the in-process transport, every chunk's table bit
-    for bit, KS launching its stated count a chunk. Returns chunk 0's
-    recorded launches at 2 chunks (for the timing) and the checks' numbers."""
+    """Phase 3b: KS (ops/sharded_fit.py) against its plain versions on the
+    card: ``cloud`` at capacity 131072 as 2, 4 and 8 chunks of the
+    in-process transport. The cluster route (the default there: one launch
+    for all the chunks) must equal ``tiled_fit(comm=...)`` and its plain
+    version (``sharded_fit_reference`` over the same chunk comm) bit for bit,
+    in one launch a frame; the phase route (forced) must equal ``tiled_fit(comm=...)``, in
+    its stated count a chunk. Returns chunk 0's recorded phase launches at 2
+    chunks, each chunk count's fit inputs (for the timing) and the checks'
+    numbers."""
     import torch
 
     from patchworkpp_tpu_torch.ops import sharded_fit as sf
@@ -268,34 +288,57 @@ def sharded_fit_phase(p, cloud, label, device="cuda") -> dict:
     x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
     per_chunk = sf.launches_per_frame(p)
 
-    def kernel(fi, comm):
-        return sf.sharded_fit(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
-                              fi.gates, fi.consts, p, comm)
+    def args(fi):
+        return (fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
+                fi.consts)
+
+    def cluster(fi, comm):  # the route sharded_fit takes for these chunks
+        return sf.sharded_fit(*args(fi), p, comm)
+
+    def phases(fi, comm):  # the route of shards in other processes, here forced
+        return sf._drive(sf._Kernel(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.pad_start, fi.gates,
+                                    fi.consts, p), p, comm)
 
     def plain(fi, comm):
         return tiled_fit(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start,
                          fi.gates, fi.consts[0], p, comm=comm)
+
+    def cluster_plain(fi, comm):
+        return sf.sharded_fit_reference(*args(fi), p, comm)
 
     def recorded(fi, comm):
         rec = PhaseRecorder(sf._Kernel(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.pad_start,
                                        fi.gates, fi.consts, p))
         return fi, rec, sf._drive(rec, p, comm).clone()
 
-    out = {"launches_per_chunk": per_chunk}
-    max_err = 0.0
-    for k in (2, 4):
+    def counted(fits, k):
         before = sf.sharded_fit.launches
-        tables = _chunk_fit_tables(p, k, x, len(cloud), [kernel, plain], device=dev)
+        tables = _chunk_fit_tables(p, k, x, len(cloud), fits, device=dev)
         torch.cuda.synchronize()
-        launched = sf.sharded_fit.launches - before
+        return tables, sf.sharded_fit.launches - before
+
+    out = {"launches_per_chunk": per_chunk, "cluster_inputs": {}}
+    max_err = 0.0
+    for k in (2, 4, 8):
+        tables, launched = counted([cluster, plain, cluster_plain,
+                                    lambda fi, comm: args(fi)], k)
+        if launched != 1:
+            raise AssertionError(f"KS cluster {label} chunks={k}: {launched} launches, "
+                                 "expected 1 for the chunk group")
+        phase_tables, launched = counted([phases], k)
         if launched != k * per_chunk:
-            raise AssertionError(f"KS {label} chunks={k}: {launched} launches, "
+            raise AssertionError(f"KS phases {label} chunks={k}: {launched} launches, "
                                  f"expected {k} x {per_chunk}")
-        for c, (got, want) in enumerate(tables):
-            max_err = max(max_err, compare_tables(
-                got, want, p, f"KS vs plain (card), {label}, chunks={k}, chunk {c}"))
-            if not bitwise(got, want):
-                raise AssertionError(f"KS {label} chunks={k} chunk {c}: not bit for bit")
+        for c, ((got, want, want_cl, _), (ph,)) in enumerate(zip(tables, phase_tables)):
+            for a, b, what in ((got, want, "cluster vs tiled_fit(comm)"),
+                               (got, want_cl, "cluster vs its plain version"),
+                               (ph, want, "phases vs tiled_fit(comm)")):
+                max_err = max(max_err, compare_tables(
+                    a, b, p, f"KS {what} (card), {label}, chunks={k}, chunk {c}"))
+                if not bitwise(a, b):
+                    raise AssertionError(f"KS {what} {label} chunks={k} chunk {c}: "
+                                         "not bit for bit")
+        out["cluster_inputs"][k] = [t[3] for t in tables]
     out["max_abs_err"] = max_err
     fi, rec, table = _chunk_fit_tables(p, 2, x, len(cloud), [recorded], device=dev)[0][0]
     if not bitwise(rec.replay(sf._Kernel(fi.xs, fi.ys, fi.zs, fi.valid_f, fi.pad_start,
@@ -306,12 +349,59 @@ def sharded_fit_phase(p, cloud, label, device="cuda") -> dict:
         fi.consts[0], p)))
     if not bitwise(plain_again, table):
         raise AssertionError(f"KS {label}: the plain phases on the recorded inputs differ")
-    tiles = ((fi.pad_start[1:] - fi.pad_start[:-1]) // 128)[fi.gates[:, 0] > 0.5]
-    out.update(chunk0_processed_tiles=int(tiles.sum()), chunk0_largest_tiles=int(tiles.max()))
-    print(f"KS {label}: chunks=2 and 4 == tiled_fit(comm) on the card bit for bit, "
-          f"{per_chunk} launches a chunk; chunk 0 of 2: {out['chunk0_processed_tiles']} "
-          f"processed tiles, largest patch {out['chunk0_largest_tiles']}")
+    rows = []
+    for chunk in out["cluster_inputs"][2]:
+        tiles = ((chunk[5][1:] - chunk[5][:-1]) // 128)[chunk[6][:, 0] > 0.5]
+        rows.append((int(tiles.sum()), int(tiles.max())))
+    out.update(chunk0_processed_tiles=rows[0][0], chunk0_largest_tiles=rows[0][1],
+               processed_tiles_2=sum(r[0] for r in rows),
+               largest_tiles_2=max(r[1] for r in rows))
+    print(f"KS {label}: chunks=2, 4 and 8: the cluster route == tiled_fit(comm) and its "
+          f"plain version on the card bit for bit in 1 launch a frame, the phase route == "
+          f"tiled_fit(comm) in {per_chunk} launches a chunk; chunks=2: "
+          f"{out['processed_tiles_2']} processed tiles, largest patch in a chunk "
+          f"{out['largest_tiles_2']}")
     return {"record": (fi, rec), **out}
+
+
+def cluster_checks_phase(p, cluster_inputs, label) -> None:
+    """Phase 3b's debug build: KS built with PPK_CLUSTER_CHECKS, whose
+    cluster kernel traps unless every CTA of a cluster holds rank 0's plane
+    and alive after every pass (the decisions that every CTA must share to
+    reach every cluster barrier), run on each chunk count's inputs; its
+    tables must equal the release build's bit for bit."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from patchworkpp_tpu_torch.ops import nvcc
+    from patchworkpp_tpu_torch.ops import sharded_fit as sf
+
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in sorted(
+        sf.SOURCE.parent.glob("fit_*.cu*")))).hexdigest()[:12]
+    nvcc.BUILD_DIR.mkdir(exist_ok=True)
+    wrapper = nvcc.BUILD_DIR / f"fit_sharded_checks_{digest}.cu"
+    wrapper.write_text(f'// KS with its cluster checks, sources {digest}\n'
+                       f'#define PPK_CLUSTER_CHECKS\n#include "{sf.SOURCE}"\n')
+    lib = nvcc.build(wrapper, "ppk_fit_sharded", sf.ARGTYPES)
+    lib.ppk_fit_sharded_cluster.argtypes = list(sf.CLUSTER_ARGTYPES)
+    lib.ppk_fit_sharded_cluster.restype = ctypes.c_int
+    release = sf.build
+    for k, chunks in cluster_inputs.items():
+        want = sf.cluster_fit(chunks, p)
+        sf.build = lambda: lib
+        try:
+            got = sf.cluster_fit(chunks, p)
+            torch.cuda.synchronize()
+        finally:
+            sf.build = release
+        for c, (a, b) in enumerate(zip(got, want)):
+            if not bitwise(a, b):
+                raise AssertionError(f"KS cluster checks build {label} chunks={k} chunk {c}: "
+                                     "differs from the release build")
+    print(f"KS cluster checks build, {label}: chunks={sorted(cluster_inputs)} uniform over "
+          "every cluster (no trap), tables == the release build's")
 
 
 def sharded_stage_ms(p, cloud, fit, reps, device="cuda") -> float:
@@ -878,7 +968,7 @@ def multi_device_phase(seed, device="cuda") -> dict:
     dev = torch.device(device)
     per_frame = int(dev.type == "cuda")  # the CPU runs the plain fit
     p = Params()
-    ks = per_frame * sf.launches_per_frame(p)  # KS launches a shard a frame
+    ks = per_frame * sf.launches_per_frame(p)  # KS's phase launches a rank a frame
     scans = [make_scan(seed, f) for f in range(MULTI_FRAMES)]
     out = {}
 
@@ -903,15 +993,15 @@ def multi_device_phase(seed, device="cuda") -> dict:
             if not np.array_equal(sa[k], sb[k]):
                 raise AssertionError(f"{label}: state {k} differs")
 
-    # a. the facade, chunks=2, on the card: KS launches its count a chunk a
-    # frame, K1 and K2 none, the plain sharded fit is never called; equal to
-    # the CPU chunked path bit for bit; labels equal to the card's K1
-    # frame, whose control run launches K1 once a frame
+    # a. the facade, chunks=2, on the card: KS's cluster route launches once
+    # a frame for both chunks, K1 and K2 none, the plain sharded fit is never
+    # called; equal to the CPU chunked path bit for bit; labels equal to the
+    # card's K1 frame, whose control run launches K1 once a frame
     model = PatchworkPP(p, capacity=CAPACITY, device=dev, chunks=2)
     zero_counts()
     chunked = run(model, scans)
     out["chunked_launches"] = counts()
-    want = {"fit_grid": 0, "fit_onehot": 0, "fit_sharded": 2 * ks * MULTI_FRAMES,
+    want = {"fit_grid": 0, "fit_onehot": 0, "fit_sharded": per_frame * MULTI_FRAMES,
             "tiled_fit_calls": 0}
     if out["chunked_launches"] != want:
         raise AssertionError(f"chunks=2: launches {out['chunked_launches']}, expected {want}")
@@ -1549,11 +1639,12 @@ def main() -> int:
     check_k2(fi_crowd, k1_crowd, "crowded patch")
     check_k2(fi_one, k1_one, "one-tile patches")
 
-    # ---- 3b. KS vs the plain sharded fit on the card, chunks=2 and 4
+    # ---- 3b. KS's two routes vs the plain sharded fits on the card, chunks=2, 4, 8
     ks_main = sharded_fit_phase(p, scans[0], "main scan")
     ks_crowd = sharded_fit_phase(p, make_crowded_scan(args.seed), "crowded patch")
-    if ks_crowd["chunk0_largest_tiles"] <= fkg.CAP_TILES:
-        raise AssertionError("crowded cloud: chunk 0's largest patch is not over the "
+    cluster_checks_phase(p, ks_main["cluster_inputs"], "main scan")
+    if ks_crowd["largest_tiles_2"] <= fkg.CAP_TILES:
+        raise AssertionError("crowded cloud: no chunk's largest patch is over the "
                              f"{fkg.CAP_TILES}-tile cap")
 
     # ---- 4. main paths on the card vs the CPU path
@@ -1568,7 +1659,11 @@ def main() -> int:
         gpu.reset()
         fkg.fused_fit_grid.launches = 0
         fk.fused_fit.launches = 0
-        res = [gpu.estimate_ground(s) for s in scans[:frames]]
+        res, states = [], {}
+        for i, s in enumerate(scans[:frames]):
+            res.append(gpu.estimate_ground(s))
+            if i == CHECKED_FRAME:
+                states["card"] = gpu.state.to_numpy()
         counts = {"fit_grid": fkg.fused_fit_grid.launches,
                   "fit_onehot": fk.fused_fit.launches}
         for k, n in counts.items():
@@ -1581,6 +1676,8 @@ def main() -> int:
         cpu = PatchworkPP(p, capacity=CAPACITY, device="cpu", fused=fused)
         for i, s in enumerate(scans[:frames]):
             r = cpu.estimate_ground(s)
+            if i == CHECKED_FRAME:
+                states["cpu"] = cpu.state.to_numpy()
             g = res[i]
             if not np.array_equal(g.ground_mask, r.ground_mask):
                 diff = int((g.ground_mask != r.ground_mask).sum())
@@ -1588,6 +1685,13 @@ def main() -> int:
                                      "differ card vs cpu")
             if g.ground_mask.shape != (len(s),) or not 0 < g.ground_mask.sum() < len(s):
                 raise AssertionError(f"fused={fused!r} frame {i}: implausible labels")
+        if fused is None and states:  # every field, bit for bit, after frame 6
+            for key, v in states["cpu"].items():
+                if not np.array_equal(states["card"][key].view(np.uint32), v.view(np.uint32)):
+                    raise AssertionError(f"frame {CHECKED_FRAME}: state {key} differs card "
+                                         "vs cpu")
+            print(f"fused=None: the state after frame {CHECKED_FRAME} equals the cpu path's "
+                  f"bit for bit, every field ({', '.join(states['cpu'])})")
         st_g, st_c = gpu.state.to_numpy(), cpu.state.to_numpy()
         exact = TILED_EXACT_STATE if fused is None else ()
         state_err = {}
@@ -1657,9 +1761,25 @@ def main() -> int:
     ks_crowd_ms = cuda_ms(lambda: rec_c.replay(sf._Kernel(
         fi_c.xs, fi_c.ys, fi_c.zs, fi_c.valid_f, fi_c.pad_start, fi_c.gates, fi_c.consts,
         p)), reps=20)
+    # the cluster route: both chunks of a chunks=2 frame in one launch (also
+    # 4 and 8 chunks, and the crowded cloud), the most clusters of each size
+    # the card holds at once; its plain version (the plain phases over the
+    # chunk comm) as a fit stage on the card
+    cl_in = ks_main["cluster_inputs"]
+    cluster_ms = {k: cuda_ms(lambda k=k: sf.cluster_fit(cl_in[k], p), reps=50)
+                  for k in (2, 4, 8)}
+    cluster_occ = {k: sf.cluster_occupancy(k) for k in (2, 4, 8)}
+    cluster_crowd_ms = cuda_ms(lambda: sf.cluster_fit(ks_crowd["cluster_inputs"][2], p),
+                               reps=20)
+    cluster_plain_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: sf.sharded_fit_reference(
+        fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates, fi.consts,
+        p, comm), reps=3)
     ks_stage_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: sf.sharded_fit(
         fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates, fi.consts,
         p, comm), reps=20)
+    ks_phase_stage_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: sf._drive(sf._Kernel(
+        fi.xs, fi.ys, fi.zs, fi.valid_f, fi.pad_start, fi.gates, fi.consts, p), p, comm),
+        reps=20)
     plain_stage_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: tiled_fit(
         fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
         fi.consts[0], p, comm=comm), reps=3)
@@ -1733,13 +1853,33 @@ def main() -> int:
     ks_ops = ks_rows * npasses * FIT_OPS_PER_ROW_PASS
     ks_t_bytes, ks_t_ops = ks_bytes / H100_BYTES_PER_S, ks_ops / H100_F32_FLOPS
     ks_bound_ms = max(ks_t_bytes, ks_t_ops) * 1e3
-    print(f"KS {ks_ms:.4f} ms a shard a frame ({sf.launches_per_frame(p)} launches, chunk 0 "
-          f"of 2, replayed), plain phases on the card {ks_plain_ms:.3f} ms, bound "
-          f"{ks_bound_ms:.5f} ms ({ks_bytes} B, {ks_ops} ops), crowded-patch cloud "
-          f"{ks_crowd_ms:.4f} ms; fit stage of a chunks=2 frame (CUDA events, both chunks "
-          f"and the comm): KS {ks_stage_ms:.3f} ms, plain tiled_fit(comm) "
-          f"{plain_stage_ms:.3f} ms; chunks=2 frame median {multi['chunked_frame_ms']:.3f} "
-          f"ms, 2-rank frame median {multi['two_rank_frame_ms']:.3f} ms; {card}")
+    # the cluster route's bound, both chunks of 2 on the main scan: both
+    # chunks' processed tiles' rows and pad_start, chunk 0's gates and
+    # consts read once, both tables written (the rows the CTAs exchange stay
+    # in distributed shared memory, and are neither input nor output)
+    n_proc = int((cl_in[2][0][6][:, 0] > 0.5).sum())
+    cl_rows = 128 * ks_main["processed_tiles_2"]
+    cl_bytes = cl_rows * 16 + 2 * 4 * (spad + 1) + 32 * spad + 32 + 2 * 4 * spad * cols
+    cl_ops = cl_rows * npasses * FIT_OPS_PER_ROW_PASS
+    cl_t_bytes, cl_t_ops = cl_bytes / H100_BYTES_PER_S, cl_ops / H100_F32_FLOPS
+    cl_bound_ms = max(cl_t_bytes, cl_t_ops) * 1e3
+    print(f"KS phase route {ks_ms:.4f} ms a shard a frame ({sf.launches_per_frame(p)} "
+          f"launches, chunk 0 of 2, replayed), plain phases on the card {ks_plain_ms:.3f} ms, "
+          f"bound {ks_bound_ms:.5f} ms ({ks_bytes} B, {ks_ops} ops), crowded-patch cloud "
+          f"{ks_crowd_ms:.4f} ms")
+    print(f"KS cluster route {cluster_ms[2]:.4f} ms for both chunks of 2 (1 launch; 4 chunks "
+          f"{cluster_ms[4]:.4f} ms, 8 chunks {cluster_ms[8]:.4f} ms), its plain version on "
+          f"the card {cluster_plain_ms:.3f} ms (a fit stage), bound {cl_bound_ms:.5f} ms "
+          f"({cl_bytes} B, {cl_ops} ops), crowded-patch cloud {cluster_crowd_ms:.4f} ms")
+    print("KS cluster route occupancy (cudaOccupancyMaxActiveClusters): " + ", ".join(
+        f"{k} chunks {cluster_occ[k]} clusters ({k * cluster_occ[k]} CTAs) at once, "
+        f"{-(-n_proc // cluster_occ[k])} waves of the {n_proc} processed patches"
+        for k in (2, 4, 8)))
+    print(f"fit stage of a chunks=2 frame (CUDA events, both chunks and their meetings): "
+          f"KS cluster {ks_stage_ms:.3f} ms, KS phases {ks_phase_stage_ms:.3f} ms, plain "
+          f"tiled_fit(comm) {plain_stage_ms:.3f} ms; chunks=2 frame median "
+          f"{multi['chunked_frame_ms']:.3f} ms, 2-rank frame median "
+          f"{multi['two_rank_frame_ms']:.3f} ms; {card}")
     kernels = {"kernels": [{
         "name": "fit_grid",
         "route": "cuda",
@@ -1766,18 +1906,35 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }, {
-        "name": "fit_sharded",
+        "name": "fit_sharded_cluster",
         "route": "cuda",
         "source": "patchworkpp_tpu_torch/csrc/fit_sharded.cu",
         "replaces": "patchworkpp_tpu/ops/tiled_fit.py:254",
         "launches": multi["chunked_launches"]["fit_sharded"],
+        "max_abs_err": max(ks_main["max_abs_err"], ks_crowd["max_abs_err"]),
+        "ms": cluster_ms[2],
+        "plain_ms": cluster_plain_ms,
+        "bound_ms": cl_bound_ms,
+        "bound_by": "bytes" if cl_t_bytes >= cl_t_ops else "operations",
+        "library_ms": None,
+        "stage_ms": ks_stage_ms,
+        "plain_stage_ms": plain_stage_ms,
+        "ms_4_chunks": cluster_ms[4],
+        "ms_8_chunks": cluster_ms[8],
+        "max_active_clusters": {str(k): v for k, v in cluster_occ.items()},
+    }, {
+        "name": "fit_sharded",
+        "route": "cuda",
+        "source": "patchworkpp_tpu_torch/csrc/fit_sharded.cu",
+        "replaces": "patchworkpp_tpu/ops/tiled_fit.py:254",
+        "launches": multi["two_rank_launches"][2],
         "max_abs_err": max(ks_main["max_abs_err"], ks_crowd["max_abs_err"]),
         "ms": ks_ms,
         "plain_ms": ks_plain_ms,
         "bound_ms": ks_bound_ms,
         "bound_by": "bytes" if ks_t_bytes >= ks_t_ops else "operations",
         "library_ms": None,
-        "stage_ms": ks_stage_ms,
+        "stage_ms": ks_phase_stage_ms,
         "plain_stage_ms": plain_stage_ms,
     }]}
     record = {
@@ -1790,8 +1947,9 @@ def main() -> int:
         "onehot_frame_ms": frame_k2_ms, "onehot_frame_ms_each": per_frame_k2,
         "unfused_frame_ms": frame_unf_ms, "unfused_frame_ms_each": per_frame_unf,
         "k1_k2_max_abs_diff": k1k2_err, "serving": serving,
-        "ks_crowded_ms": ks_crowd_ms,
-        "ks_checks": {k: v for k, v in ks_main.items() if k != "record"},
+        "ks_crowded_ms": ks_crowd_ms, "ks_cluster_crowded_ms": cluster_crowd_ms,
+        "ks_checks": {k: v for k, v in ks_main.items()
+                      if k not in ("record", "cluster_inputs")},
         "references": references, "multi_device": multi, "graphs": graphs,
         "masked_patch_moments": moments, **kernels,
     }

@@ -20,9 +20,13 @@ threads issue them, and each hook's stack follows the tensors it reads.
 Like the JAX package's, this is a correctness and emulation feature and the
 building block of the shard x chunk composition, not a speed lever: under
 the sharded comm the fit is the sharded fit kernel KS on the card
-(``ops/sharded_fit.py``, launches between the chunks' meetings) and its
-plain version, the composed ``ops/tiled_fit.py``, on the CPU; never K1.
-``num_chunks=1`` is the plain frame, K1 and all.
+(``ops/sharded_fit.py``) and its plain version, the composed
+``ops/tiled_fit.py``, on the CPU; never K1. Without an outer group (up to 8
+chunks) KS takes its cluster route: the chunks meet once a frame in the fit
+(:meth:`ChunkComm.meet_local`, their fit inputs handed to the last chunk,
+which launches one cluster kernel for all); with one (shard x chunk) each chunk
+launches KS's phases with the comm's exchanges between them, about a dozen
+meetings a frame. ``num_chunks=1`` is the plain frame, K1 and all.
 """
 
 from __future__ import annotations
@@ -88,12 +92,22 @@ class Exchange:
             self.cond.notify_all()
 
     def gather(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        self.slots[i] = x
-        if i == self.n - 1:
-            g = torch.stack(self.slots)
+        def stack(slots):
+            g = torch.stack(slots)
             if self.outer is not None:
                 g = self.outer.gather(g).reshape(-1, *x.shape)
-            self.result = g
+            return g
+
+        return self.meet(i, x, stack)
+
+    def meet(self, i: int, x, fn):
+        """Chunk ``i`` deposits ``x`` (any object) and passes the turn on;
+        the last chunk calls ``fn`` on the deposits in chunk order. Every
+        chunk returns what ``fn`` returned (a chunk raising in ``fn`` ends
+        the others through :meth:`abort`, as any chunk's error does)."""
+        self.slots[i] = x
+        if i == self.n - 1:
+            self.result = fn(list(self.slots))
         self.pass_turn(i)
         self.wait_turn(i)
         return self.result
@@ -110,6 +124,23 @@ class ChunkTransport:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return self.exchange.gather(self.chunk, x)
+
+
+class ChunkComm(MeshComm):
+    """A chunk's :class:`MeshComm`, whose chunks can also meet as threads of
+    this process: :meth:`meet_local` is the sharded fit's cluster route
+    (``ops/sharded_fit.py``), all the chunks' fits in one launch."""
+
+    def meet_local(self, x, fn, most: int):
+        """``fn([x of chunk 0, ..., x of chunk K-1])[chunk]``, ``fn`` called
+        once by the last chunk in its turn, where the exchange has no outer
+        group and K <= ``most``; else None, with no meeting (every chunk
+        decides alike)."""
+        t = self.transport
+        ex = t.exchange
+        if ex.outer is not None or ex.n > most:
+            return None
+        return ex.meet(t.chunk, x, fn)[t.chunk]
 
 
 def run_chunks(exchange: Exchange, tasks, stream=None) -> list:
@@ -145,7 +176,7 @@ def _chunk_wiring(params, geom, device, fused, num_chunks, outer=None):
     """The :class:`Exchange` of ``num_chunks`` chunks, each chunk's comm,
     and each chunk's per-shard frame on that comm."""
     exchange = Exchange(num_chunks, outer)
-    comms = [MeshComm(ChunkTransport(exchange, i)) for i in range(num_chunks)]
+    comms = [ChunkComm(ChunkTransport(exchange, i)) for i in range(num_chunks)]
     frames = [make_frame_fn(params, geom, device, fused, comm=c) for c in comms]
     return exchange, comms, frames
 

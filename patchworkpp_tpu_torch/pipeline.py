@@ -203,6 +203,16 @@ class FrameComm:
         return (seq_sum(torch.where(occ > 0.5, z_at_rank, zero)),
                 torch.clamp_max(elig_cnt, float(num_lpr)))
 
+    def meet_local(self, x, fn, most: int):
+        """Every shard's ``x`` handed to one call ``fn([x, ...])`` in linear
+        shard order, which returns one result a shard; each shard gets its
+        own. Only where all the shards are threads of this process and at
+        most ``most`` (the chunks of ``parallel/chunked.py``); None
+        elsewhere, the same in every shard, and the caller then meets the
+        shards through the other hooks. The identity comm has no shards to
+        meet: None."""
+        return None
+
 
 def _fit_planes(
     carry: _PlaneCarry,

@@ -271,10 +271,11 @@ def test_plain_fit_on_64_beam_scan_matches_jax(jax_tiled_fit):
     assert beyond < 250
 
 
-def _extern_c_argtypes(source):
-    """ctypes types of the ``extern "C"`` entry point's parameters, in
-    order: c_void_p for a pointer, c_int for int, c_float for float."""
-    m = re.search(r'extern "C" int \w+\(([^)]*)\)', source.read_text())
+def _extern_c_argtypes(source, symbol=r"\w+"):
+    """ctypes types of the ``extern "C"`` entry point's parameters (the
+    first one, or ``symbol``), in order: c_void_p for a pointer, c_int for
+    int, c_float for float."""
+    m = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', source.read_text())
     assert m, source
     out = []
     for param in m.group(1).split(","):

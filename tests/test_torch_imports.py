@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of patchworkpp_tpu_torch, and
-neither chip_smoke.py nor scripts/gpu_parity.py nor
-scripts/torch_multiproc_parity.py, imports jax or the JAX package (checked
+none of chip_smoke.py and the card scripts (scripts/gpu_parity.py,
+torch_multiproc_parity.py, frame_graph_probe.py, ks_route_bench.py),
+imports jax or the JAX package (checked
 on the source with the ast module, since importing would pull in whatever
 the interpreter has already loaded)."""
 
@@ -14,7 +15,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "patchworkpp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "gpu_parity.py",
-    ROOT / "scripts" / "torch_multiproc_parity.py", ROOT / "scripts" / "frame_graph_probe.py"]
+    ROOT / "scripts" / "torch_multiproc_parity.py", ROOT / "scripts" / "frame_graph_probe.py",
+    ROOT / "scripts" / "ks_route_bench.py"]
 
 
 def _imported_modules(path: Path):
