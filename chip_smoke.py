@@ -3,13 +3,14 @@
 
 Phases, in order; any failure raises and exits nonzero before the last line:
 
-1. print the card (nvidia-smi name, power limit) and build the three CUDA
-   fit kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu, K2 from
+1. print the card (nvidia-smi name, power limit) and build the four CUDA
+   kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu, K2 from
    csrc/fit_onehot.cu (both the fit program of csrc/fit_program.cuh, with
-   their own per-patch sums) and KS, the sharded fit, from
+   their own per-patch sums), KS, the sharded fit, from
    csrc/fit_sharded.cu (the same program for sharded points: a cluster of
    CTAs a patch across the chunks of one process, or launches cut at the
-   cross-shard points), with one nvcc each started together (build time,
+   cross-shard points) and KR, the unfused engine's per-patch sum, from
+   csrc/patch_reduce.cu, with one nvcc each started together (build time,
    ptxas reports);
 2. make a synthetic KITTI-scale scan from --seed (io/synthetic.py: 64
    beams over 360 deg, a tilted noisy ground plane, walls, boxes, reflected
@@ -20,7 +21,10 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    keep in shared memory (so it is staged chunk by chunk at every walk) and
    on a cloud whose processed patches hold one tile each; K1 also on a
    small cloud with num_iter=4 (K2 refuses it); on each cloud K2's integer
-   columns must equal K1's;
+   columns must equal K1's; KR against its plain version on the card and
+   on the CPU, bit for bit, on every ops.patch_reduce call of an unfused
+   frame of the scan and of the crowded-patch cloud (11 calls each, the
+   inputs recorded from the frame);
 3b. hold KS's two routes against their plain versions on the card: the
    scan and the crowded-patch cloud at capacity 131072 as 2, 4 and 8
    chunks of the in-process transport (parallel/chunked.py), every chunk's
@@ -44,9 +48,11 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    path and be 0 on the other's, the final adaptive state must agree (the
    default engine's thresholds, sensor height and elevation buffer bit for
    bit, and its whole state after frame 6 bit for bit); then
-   the unfused engine (fused=False) for 3 frames, labels equal to the CPU
-   unfused engine's; the labels that differ between the three engines are
-   printed, not asserted;
+   the unfused engine (fused=False) over the same frames, captured too
+   (KR launched 11 times a frame, nothing else), its replays equal to its
+   eager frames bit for bit (every FrameResult field, the state after each
+   frame) and its labels to the CPU unfused engine's; the labels that
+   differ between the three engines are printed, not asserted;
 4b. the serving surface: for each preset (models/presets.py:
    patchwork_params, R-VPF and TGR off; ros_launch_params, num_min_pts=0)
    K1 bit for bit against its plain version on that preset's tiled inputs,
@@ -78,18 +84,26 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    streams the files through the native loader and the numpy one, with
    the same frames and first-epoch labels, their scans/s printed;
 4d. the multi-device layer (patchworkpp_tpu_torch/parallel/), on
-   make_scan(seed, 0..2) chained at capacity 131072: PatchworkPP(chunks=2)
-   on the card (KS's cluster route, 1 launch a frame for both chunks, K1
-   and K2 none, the plain tiled_fit never called) equal to the CPU chunked
-   path bit for bit and
-   its labels equal to the card's K1 frame (a chunks=1 control launches K1
-   once a frame and nothing else); the chunked frame timed with CUDA
-   events; then two gloo ranks, both on this card, in their own processes
-   under a timeout: the point-sharded frame equal to the card's chunks=2
-   frame bit for bit (every FrameResult field and the state; KS 12
-   launches a rank a frame, nothing else) and two frame-parallel streams,
-   one per rank, each equal to its own facade, with K1 launched once per
-   frame per rank; the 2-rank frame time on the host clock;
+   make_scan(seed, 0..19) chained at capacity 131072: PatchworkPP(chunks=2)
+   and chunks=4 captured on the card (KS's cluster route, 1 launch a replay
+   for all chunks, K1, K2 and KR none, the plain tiled_fit never called),
+   their replays equal to their eager frames bit for bit (every
+   FrameResult field, the state after each frame) and to the CPU chunked
+   path bit for bit (labels, planes, state), chunks=2's labels equal to the
+   card's K1 frame on frames 0..2 (a chunks=1 control launches K1 once a
+   frame and nothing else; the differing labels of all 20 printed);
+   chunks=16 (KS's phase route, 12 launches a chunk a replay) and chunks=2
+   of the unfused engine (KR 7 launches a chunk a replay) captured over 3
+   frames, equal to their eager frames; make_chunked_frame_fn and
+   make_chunked_sequence_fn (compiled: captured graphs) over the 20 frames
+   equal to the facade's eager chunks=2 frames bit for bit; then two gloo
+   ranks, both on this card, in their own processes under a timeout: the
+   point-sharded frame (eager: gloo gathers through the host) equal to the
+   card's chunks=2 frame bit for bit (every FrameResult field and the
+   state; KS 12 launches a rank a frame, nothing else) and two
+   frame-parallel streams, one per rank, through the rank's captured frame,
+   each equal to its own facade, with K1 launched once per replay per rank;
+   the 2-rank frame time on the host clock;
 4e. the captured frames (graphs.py): over 20 chained frames, captured ==
    eager bit for bit (every FrameResult field and the state after each
    frame) for the facade's tiled and onehot frames, both presets, the
@@ -103,24 +117,28 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the server's closed-loop p50 and p95; the graph's memory pool in MB;
    the captured tiled frame's graph node count and device operations
    (scripts/frame_graph_probe.py, whose frame_ms times every frame of this
-   phase) beside its ms a frame; and a 24-frame sequence as the
+   phase) beside its ms a frame; eager against captured ms a frame of the
+   chunks=2, chunks=4 and unfused frames, with their graphs' node counts
+   and pools; and a 24-frame sequence as the
    frame graph replayed 24 times against the whole chain captured as one
    graph (ms a frame);
 4f. ops.masked_patch_moments (no engine runs it) on the main scan binned
    into its patches: the card's sums equal the CPU's bit for bit; its ms
    a call on the card and on the host;
-5. time the three kernels (also on the crowded-patch cloud), their plain
+5. time the four kernels (also on the crowded-patch cloud), their plain
    versions on the card and the frame of each engine, with CUDA events
    after warm-up (KS: the cluster route on 2, 4 and 8 chunks, the phase
    route as chunk 0's 12 recorded launches replayed, and the fit stage of
-   a chunks=2 frame for both routes and tiled_fit(comm)); print K1's time
+   a chunks=2 frame for both routes and tiled_fit(comm); KR on a recorded
+   10-column moment sum, beside index_add_ on the same inputs and its
+   byte bound); print K1's time
    per walk of the largest patch over its tiles (kernel ms / (tiles x
    walks)) and the kernels JSON line;
 6. print {"ok": true, "device": {...}} as the last line.
 
 With --profile, a torch.profiler window over a few frames of each engine
-(tiled, onehot, unfused, eagerly, and the tiled and onehot frames
-captured) follows phase 5: host and device time per frame stage (the
+(tiled, onehot, unfused, eagerly, and the three frames captured)
+follows phase 5: host and device time per frame stage (the
 eager frames; a replay has no stage ranges), the device's busy share, the
 device launches and the host's launch calls a frame, and the kernels that
 take the most device time (printed, and kept with the other numbers in
@@ -151,8 +169,9 @@ SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep's unit at the H100's top SM clo
 # and LPR bookkeeping (~4). Both kernels run the same 7 fused passes, so
 # both are held to that work.
 FIT_OPS_PER_ROW_PASS = 40
-UNFUSED_FRAMES = 3
 SERVER_FRAMES = 20
+EAGER_UNFUSED_FRAMES = 3  # eager unfused frames timed or profiled (~0.6 s each)
+EAGER_UNFUSED_TIMED = 6  # eager unfused frames of phase 4e's timing
 # A kernel and its plain version run the same float operations in the same
 # order (nvcc's contraction off, the plain version's fused multiply-adds as
 # explicit ones), so their tables must agree bit for bit (tolerance 0).
@@ -265,6 +284,62 @@ class PhaseRecorder:
         for name, args in self.calls:
             out = getattr(phases, name)(*args)
         return out
+
+
+def record_patch_reduce(p, cloud, device="cuda") -> list:
+    """The inputs of every ``ops.patch_reduce`` call of one eager unfused frame
+    of ``cloud`` at capacity CAPACITY: (feats, patch_id, start), in call
+    order (KR's inputs at the main path's shapes: 4 LPR sums of 2 columns,
+    7 moment sums of 10 at default Params)."""
+    import torch
+
+    from patchworkpp_tpu_torch import init_state, pipeline
+
+    calls, real = [], pipeline.patch_reduce
+
+    def recording(feats, patch_id, start):
+        calls.append((feats.clone(), patch_id.clone(), start.clone()))
+        return real(feats, patch_id, start)
+
+    dev = torch.device(device)
+    x = torch.zeros((CAPACITY, 4), device=dev)
+    x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
+    pipeline.patch_reduce = recording
+    try:
+        pipeline.make_frame_fn(p, device=dev, fused=False)(init_state(p, dev), x, len(cloud))
+    finally:
+        pipeline.patch_reduce = real
+    return calls
+
+
+def check_kr(calls, label) -> float:
+    """KR vs its plain version on the card and on the CPU on each recorded
+    call, bit for bit; one launch a call. Returns max |err| (0)."""
+    import torch
+
+    from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
+    from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
+
+    before, err = patch_reduce_kernel.launches, 0.0
+    for i, (feats, pid, start) in enumerate(calls):
+        out = patch_reduce_kernel(feats, start)
+        torch.cuda.synchronize()
+        for where, ref in (("card", patch_reduce_reference(feats, pid, start)),
+                           ("cpu", patch_reduce_reference(feats.cpu(), pid.cpu(),
+                                                          start.cpu()))):
+            if not bitwise(out.cpu(), ref.cpu()):
+                raise AssertionError(f"KR vs plain ({where}), {label} call {i}: not bit for "
+                                     f"bit, max |err| {float((out.cpu() - ref.cpu()).abs().max())}")
+            err = max(err, float((out.cpu() - ref.cpu()).abs().max()))
+    if patch_reduce_kernel.launches != before + len(calls):
+        raise AssertionError(f"KR {label}: {patch_reduce_kernel.launches - before} launches "
+                             f"for {len(calls)} calls")
+    counts = np.diff(calls[0][2].cpu().numpy())
+    print(f"KR vs plain (card and cpu), {label}: {len(calls)} calls of one unfused frame "
+          f"(columns {sorted({c[0].shape[1] for c in calls})}, {calls[0][0].shape[0]} rows, "
+          f"{len(counts)} patches, largest {int(counts.max())} rows, "
+          f"{int((counts == 0).sum())} empty) bit for bit, max_abs_err {err}")
+    return err
 
 
 def sharded_fit_phase(p, cloud, label, device="cuda") -> dict:
@@ -875,14 +950,17 @@ def references_phase(here, card, device="cuda") -> dict:
 
 MULTI_FRAMES = 3
 MULTI_TIMEOUT = 300.0
+CHUNK_FRAMES = 20  # chained frames of each captured chunks=2 and 4 facade
+PHASE_ROUTE_CHUNKS = 16  # over KS's cluster size: its phase route, captured
+PHASE_ROUTE_FRAMES = 3
 
 
 def _multi_device_rank(rank: int, nprocs: int, cfg: dict) -> None:
     """One rank of phase 4d, on cuda:0 (gloo gathers through the host):
     the point-sharded frame over ``MULTI_FRAMES`` chained scans, then two
-    frame-parallel streams (stream b: make_scan(seed + b, f)), each with
-    the launch counts set to 0 just before and read just after. Writes
-    ``rank<r>.npz``."""
+    frame-parallel streams (stream b: make_scan(seed + b, f)) through the
+    captured frame (a first call captures it), each with the launch counts
+    set to 0 just before and read just after. Writes ``rank<r>.npz``."""
     import torch
 
     from patchworkpp_tpu_torch import Params, init_state
@@ -936,6 +1014,10 @@ def _multi_device_rank(rank: int, nprocs: int, cfg: dict) -> None:
     out["ps_host_ms"] = np.array(host_ms)
 
     batch = make_batch_frame_fn(p, device=dev)
+    first = torch.stack([scans[b][0][0] for b in range(nprocs)])
+    batch(batch_init_state(p, nprocs, dev), first, [scans[b][0][1] for b in range(nprocs)])
+    sync()  # the first call captured the frame; the counts follow the replays
+    out["fp_captured"] = np.array(batch.compiled.is_captured)
     states = batch_init_state(p, nprocs, dev)
     zero_counts()
     for f in range(MULTI_FRAMES):
@@ -950,35 +1032,39 @@ def _multi_device_rank(rank: int, nprocs: int, cfg: dict) -> None:
 
 def multi_device_phase(seed, device="cuda") -> dict:
     """Phase 4d: the multi-device layer on ``device``, on make_scan(seed,
-    0..2) chained at capacity 131072. Raises on any failure."""
+    0..CHUNK_FRAMES-1) chained at capacity 131072. Raises on any failure."""
     import tempfile
 
     import torch
 
     from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
+    from patchworkpp_tpu_torch.graphs import CompiledSequence
     from patchworkpp_tpu_torch.io.synthetic import make_scan
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.ops import patch_reduce_kernel as kr
     from patchworkpp_tpu_torch.ops import sharded_fit as sf
     from patchworkpp_tpu_torch.ops import tiled_fit as tf
-    from patchworkpp_tpu_torch.parallel import make_chunked_frame_fn
+    from patchworkpp_tpu_torch.parallel import make_chunked_frame_fn, make_chunked_sequence_fn
     from patchworkpp_tpu_torch.parallel.selfcheck import spawn
 
     t_phase = time.perf_counter()
     dev = torch.device(device)
-    per_frame = int(dev.type == "cuda")  # the CPU runs the plain fit
+    on_card = dev.type == "cuda"
+    per_frame = int(on_card)  # the CPU runs the plain fit
     p = Params()
     ks = per_frame * sf.launches_per_frame(p)  # KS's phase launches a rank a frame
-    scans = [make_scan(seed, f) for f in range(MULTI_FRAMES)]
+    scans = [make_scan(seed, f) for f in range(CHUNK_FRAMES)]
     out = {}
 
     def zero_counts():
         fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
-        sf.sharded_fit.launches = tf.tiled_fit.calls = 0
+        sf.sharded_fit.launches = tf.tiled_fit.calls = kr.patch_reduce_kernel.launches = 0
 
     def counts():
         return {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches,
-                "fit_sharded": sf.sharded_fit.launches, "tiled_fit_calls": tf.tiled_fit.calls}
+                "fit_sharded": sf.sharded_fit.launches, "tiled_fit_calls": tf.tiled_fit.calls,
+                "patch_reduce": kr.patch_reduce_kernel.launches}
 
     def run(model, chain):
         return [model.estimate_ground(s) for s in chain], model.state.to_numpy()
@@ -993,59 +1079,124 @@ def multi_device_phase(seed, device="cuda") -> dict:
             if not np.array_equal(sa[k], sb[k]):
                 raise AssertionError(f"{label}: state {k} differs")
 
-    # a. the facade, chunks=2, on the card: KS's cluster route launches once
-    # a frame for both chunks, K1 and K2 none, the plain sharded fit is never
-    # called; equal to the CPU chunked path bit for bit; labels equal to the
-    # card's K1 frame, whose control run launches K1 once a frame
-    model = PatchworkPP(p, capacity=CAPACITY, device=dev, chunks=2)
-    zero_counts()
-    chunked = run(model, scans)
-    out["chunked_launches"] = counts()
-    want = {"fit_grid": 0, "fit_onehot": 0, "fit_sharded": per_frame * MULTI_FRAMES,
-            "tiled_fit_calls": 0}
-    if out["chunked_launches"] != want:
-        raise AssertionError(f"chunks=2: launches {out['chunked_launches']}, expected {want}")
-    same(chunked, run(PatchworkPP(p, capacity=CAPACITY, device="cpu", chunks=2), scans),
-         "chunks=2 card vs cpu")
+    def captured_run(label, frames, want, **kw):
+        """PatchworkPP(**kw) over ``frames`` chained scans, its frame
+        captured (one frame first captures it, then the state is reset;
+        every count set to 0 just before the run and read just after, and
+        equal to ``want``); each frame, every FrameResult field and the
+        state after it, == an eager facade's bit for bit. Returns (the
+        results and final state, [(FrameResult, state)] a frame, the graph
+        pool's bytes)."""
+        model = PatchworkPP(p, capacity=CAPACITY, device=dev, **kw)
+        model.estimate_ground(scans[0])  # builds the kernels, captures the frame
+        model.reset()
+        zero_counts()
+        res, kept = [], []
+        for s in scans[:frames]:
+            res.append(model.estimate_ground(s))
+            kept.append((model.last_result, model.state))
+        got = counts()
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        cfs = _all_captured(model, label) if on_card else list(model._frames.values())
+        eager = PatchworkPP(p, capacity=CAPACITY, device=dev, **kw)
+        for i, s in enumerate(scans[:frames]):
+            eager._estimate(s, captured=False)
+            _same_frame(kept[i], (eager.last_result, eager._state),
+                        f"{label} frame {i}, captured vs eager")
+        print(f"{label} on the card, captured: {frames} chained frames == eager frames bit "
+              f"for bit (every field, the state after each); launches {got}")
+        return (res, model.state.to_numpy()), kept, cfs[0].pool_bytes, got
+
+    def want(fit_sharded=0, patch_reduce=0, calls=0):
+        return {"fit_grid": 0, "fit_onehot": 0, "fit_sharded": fit_sharded,
+                "tiled_fit_calls": calls, "patch_reduce": patch_reduce}
+
+    # a. the facade, chunks=2 and 4, captured on the card: KS's cluster route
+    # launches once a replay for all chunks, K1, K2 and KR none, the plain
+    # sharded fit is never called; == its eager frames bit for bit, == the CPU
+    # chunked path bit for bit; chunks=2's labels == the card's K1 frame on
+    # the first MULTI_FRAMES frames (a chunks=1 control launches K1 once a
+    # frame and nothing else), the differing labels of the whole chain printed
+    n = CHUNK_FRAMES
+    chunked, kept = {}, {}
+    out["chunked_launches"], out["chunked_pool_mb"] = {}, {}
+    for k in (2, 4):
+        calls = 0 if on_card else k * n  # the CPU runs the plain sharded fit
+        chunked[k], kept[k], pool, got = captured_run(
+            f"chunks={k}", n, want(fit_sharded=per_frame * n, calls=calls), chunks=k)
+        out["chunked_launches"][k] = got
+        out["chunked_pool_mb"][k] = pool / 2**20
+        t0 = time.perf_counter()
+        same(chunked[k], run(PatchworkPP(p, capacity=CAPACITY, device="cpu", chunks=k), scans),
+             f"chunks={k} card vs cpu")
+        print(f"chunks={k}: {n} frames == the cpu chunked path bit for bit (labels, planes, "
+              f"state; cpu {time.perf_counter() - t0:.1f} s)")
     control = PatchworkPP(p, capacity=CAPACITY, device=dev)
     control.estimate_ground(scans[0])  # captures the frame
     control.reset()
     zero_counts()
     plain = run(control, scans)
     out["control_launches"] = counts()
-    if out["control_launches"] != {"fit_grid": per_frame * MULTI_FRAMES, "fit_onehot": 0,
-                                   "fit_sharded": 0, "tiled_fit_calls": 0}:
+    if out["control_launches"] != {**want(calls=(1 - per_frame) * n), "fit_grid": per_frame * n}:
         raise AssertionError(f"chunks=1 control: launches {out['control_launches']}")
-    for i, (a, b) in enumerate(zip(chunked[0], plain[0])):
-        if not np.array_equal(a.ground_mask, b.ground_mask):
-            raise AssertionError(f"chunks=2 vs K1 frame {i}: "
-                                 f"{int((a.ground_mask != b.ground_mask).sum())} labels differ")
-    print(f"chunks=2 on the card: {MULTI_FRAMES} frames == cpu chunked bit for bit, labels "
-          f"== K1 frame; launches {out['chunked_launches']} (control {out['control_launches']})")
+    diff = [int((a.ground_mask != b.ground_mask).sum())
+            for a, b in zip(chunked[2][0], plain[0])]
+    if any(diff[:MULTI_FRAMES]):
+        raise AssertionError(f"chunks=2 vs K1, frames 0..{MULTI_FRAMES - 1}: labels differ "
+                             f"{diff[:MULTI_FRAMES]}")
+    out["chunks2_vs_k1_labels_differing"] = diff
+    print(f"chunks=2 labels == the K1 frame's on frames 0..{MULTI_FRAMES - 1}; differing "
+          f"labels a frame over {n}: {diff}; control launches {out['control_launches']}")
 
-    # b. the chunked frame on the card, timed with CUDA events
+    # the phase route (more than 8 chunks) captured: 12 KS launches a chunk a
+    # replay; the unfused engine chunked: KR 7 launches a chunk a replay (its
+    # LPR sums are the comm's table merge)
+    pr = PHASE_ROUTE_CHUNKS
+    _, _, pool, out["phase_route_launches"] = captured_run(
+        f"chunks={pr} (KS's phase route)", PHASE_ROUTE_FRAMES,
+        want(fit_sharded=ks * pr * PHASE_ROUTE_FRAMES,
+             calls=0 if on_card else pr * PHASE_ROUTE_FRAMES),
+        chunks=pr)
+    out["phase_route_pool_mb"] = pool / 2**20
+    n_mom = 2 * p.num_iter + 1 if p.enable_RVPF else p.num_iter + 1  # moment sums a frame
+    out["chunked_unfused_launches"] = captured_run(
+        "chunks=2, unfused", PHASE_ROUTE_FRAMES,
+        want(patch_reduce=per_frame * 2 * n_mom * PHASE_ROUTE_FRAMES),
+        chunks=2, fused=False)[3]
+
+    # b. make_chunked_frame_fn and make_chunked_sequence_fn (compiled on the
+    # card, KS once a replay) == the eager frames of a, bit for bit
     fn = make_chunked_frame_fn(p, 2, device=dev)
+    seq = make_chunked_sequence_fn(p, 2, device=dev)
+    if on_card and not isinstance(seq, CompiledSequence):
+        raise AssertionError(f"make_chunked_sequence_fn gave {type(seq).__name__}")
     xs = []
     for s in scans:
         x = torch.zeros((CAPACITY, 4), device=dev)
         x[: len(s)] = torch.from_numpy(s).to(dev)
         xs.append(x)
-    fn(init_state(p, dev), xs[0], len(scans[0]))  # warm-up
-    st, ref, chunk_ms = init_state(p, dev), [], []
-    for x, s in zip(xs, scans):
-        if dev.type == "cuda":
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            a.record()
-            st, res = fn(st, x, len(s))
-            b.record()
-            torch.cuda.synchronize()
-            chunk_ms.append(a.elapsed_time(b))
-        else:
-            st, res = fn(st, x, len(s))
+    fn(init_state(p, dev), xs[0], len(scans[0]))  # captures
+    seq(init_state(p, dev), torch.stack(xs[:2]), [len(s) for s in scans[:2]])  # captures
+    zero_counts()
+    st, ref = init_state(p, dev), []
+    for i, (x, s) in enumerate(zip(xs, scans)):
+        st, res = fn(st, x, len(s))
+        _same_frame((res, st), kept[2][i], f"make_chunked_frame_fn frame {i}")
         ref.append(res)
-    ref_state = st.to_numpy()
-    out["chunked_frame_ms_each"] = chunk_ms
+    st_seq, res_seq = seq(init_state(p, dev), torch.stack(xs), [len(s) for s in scans])
+    for i in range(n):
+        for name, f in zip(res_seq._fields, res_seq):
+            if not _same_bits(f[i], getattr(kept[2][i][0], name)):
+                raise AssertionError(f"make_chunked_sequence_fn frame {i}: {name} differs")
+    _same_frame((ref[-1], st_seq), kept[2][-1], "make_chunked_sequence_fn, the state")
+    got = counts()
+    if got != want(fit_sharded=2 * per_frame * n, calls=0 if on_card else 4 * n):
+        raise AssertionError(f"compiled chunked frame and sequence: launches {got}")
+    if on_card and not (fn.is_captured and seq.is_captured):
+        raise AssertionError("make_chunked_frame_fn / make_chunked_sequence_fn not captured")
+    print(f"make_chunked_frame_fn and make_chunked_sequence_fn (chunks=2), captured: {n} "
+          f"frames each == the eager frames bit for bit; launches {got}")
 
     # c. two gloo ranks, both on this card, in their own processes
     with tempfile.TemporaryDirectory(prefix="ppk_multi_") as tmp:
@@ -1055,24 +1206,27 @@ def multi_device_phase(seed, device="cuda") -> dict:
         out["two_rank_wall_s"] = time.perf_counter() - t0
         ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(2)]
     for r, got in enumerate(ranks):
-        for f, res in enumerate(ref):
+        for f, res in enumerate(ref[:MULTI_FRAMES]):
             for k in res._fields:
                 if not np.array_equal(got[f"ps{f}_{k}"], getattr(res, k).cpu().numpy()):
                     raise AssertionError(f"rank {r} point-sharded frame {f}: {k} differs "
                                          "from the card's chunks=2 frame")
-        for k, v in ref_state.items():
+        for k, v in kept[2][MULTI_FRAMES - 1][1].to_numpy().items():
             if not np.array_equal(got[f"ps_state_{k}"], v):
                 raise AssertionError(f"rank {r} point-sharded: state {k} differs")
-        if got["ps_launches"].tolist() != [0, 0, ks * MULTI_FRAMES, 0]:
+        cpu_calls = (1 - per_frame) * MULTI_FRAMES  # the CPU runs the plain fit
+        if got["ps_launches"].tolist() != [0, 0, ks * MULTI_FRAMES, cpu_calls]:
             raise AssertionError(f"rank {r}: point-sharded launches (K1, K2, KS, plain "
                                  f"calls) {got['ps_launches']}, expected KS "
                                  f"{ks * MULTI_FRAMES} and no other")
-        if got["fp_launches"].tolist() != [per_frame * MULTI_FRAMES, 0, 0, 0]:
+        if got["fp_launches"].tolist() != [per_frame * MULTI_FRAMES, 0, 0, cpu_calls]:
             raise AssertionError(f"rank {r}: frame-parallel launches {got['fp_launches']}, "
-                                 f"expected K1 {MULTI_FRAMES} (once a frame) and no other")
-    # frame-parallel stream b == its own facade (stream 0's is the K1 control)
-    facades = [plain, run(PatchworkPP(p, capacity=CAPACITY, device=dev),
-                          [make_scan(seed + 1, f) for f in range(MULTI_FRAMES)])]
+                                 f"expected K1 {MULTI_FRAMES} (once a replay) and no other")
+        if on_card and not got["fp_captured"]:
+            raise AssertionError(f"rank {r}: the frame-parallel frame is not captured")
+    # frame-parallel stream b (make_scan(seed + b, f)) == its own facade
+    facades = [run(PatchworkPP(p, capacity=CAPACITY, device=dev),
+                   [make_scan(seed + b, f) for f in range(MULTI_FRAMES)]) for b in range(2)]
     for b, (results, state) in enumerate(facades):
         for f, r in enumerate(results):
             got = ranks[0][f"fp{f}_{b}_ground_mask"][: len(r.ground_mask)]
@@ -1084,17 +1238,15 @@ def multi_device_phase(seed, device="cuda") -> dict:
                 raise AssertionError(f"frame-parallel stream {b}: state {k} differs")
     out["two_rank_frame_ms_each"] = ranks[0]["ps_host_ms"].tolist()
     out["two_rank_launches"] = ranks[0]["ps_launches"].tolist()
-    out["chunked_frame_ms"] = float(np.median(chunk_ms)) if chunk_ms else None
     out["two_rank_frame_ms"] = float(np.median(out["two_rank_frame_ms_each"]))
     print(f"2 gloo ranks on the card: point-sharded == chunks=2 bit for bit "
           f"({MULTI_FRAMES} frames, every field and the state), KS {ks * MULTI_FRAMES} "
           f"launches a rank, K1 and K2 0, plain sharded fit 0 calls; frame-parallel, 2 "
-          f"streams == their facades, K1 {per_frame * MULTI_FRAMES} a rank")
-    print(f"chunks=2 frame median {out['chunked_frame_ms']} ms (CUDA events) "
-          f"{[round(t, 3) for t in chunk_ms]}; 2-rank point-sharded frame median "
-          f"{out['two_rank_frame_ms']:.3f} ms (host clock, rank 0) "
-          f"{[round(t, 3) for t in out['two_rank_frame_ms_each']]}; "
-          f"spawn to exit {out['two_rank_wall_s']:.1f} s")
+          f"streams, captured, == their facades, K1 {per_frame * MULTI_FRAMES} a rank in "
+          f"{MULTI_FRAMES} replays")
+    print(f"2-rank point-sharded frame median {out['two_rank_frame_ms']:.3f} ms (host clock, "
+          f"rank 0) {[round(t, 3) for t in out['two_rank_frame_ms_each']]}; spawn to exit "
+          f"{out['two_rank_wall_s']:.1f} s")
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"multi-device phase: {out['wall_s']:.1f} s")
     return out
@@ -1229,6 +1381,8 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
     from patchworkpp_tpu_torch.models import patchwork_params, ros_launch_params
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.parallel.chunked import chunked_step
+    from patchworkpp_tpu_torch.params import CZMGeometry
     from patchworkpp_tpu_torch.serve import CloudMsg, GroundSegmentationServer, ServerConfig
     from patchworkpp_tpu_torch.utils.roofline import trace
 
@@ -1437,6 +1591,33 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
               f"readback; median of {n - 1}): {host['eager']:.3f} vs {host['captured']:.3f}; "
               f"{card}")
 
+    # the chunked (K = 2, 4) and unfused frames: eager against captured, the
+    # graph's node count and pool
+    out["graph_nodes"] = {"tiled": out["tiled_frame_graph"]["graph_nodes"]}
+    for label, kw, frames in (("chunks=2", {"chunks": 2}, n), ("chunks=4", {"chunks": 4}, n),
+                              ("unfused", {"fused": False}, EAGER_UNFUSED_TIMED)):
+        step = chunked_step(p, kw.get("chunks", 1), CZMGeometry.create(p), kw.get("fused"),
+                            dev)
+        box = [init_state(p, dev)]
+
+        def eager(k, xs, step=step, box=box):
+            box[0], _ = step(box[0], xs[k], len(chain[k]))
+
+        m = PatchworkPP(p, capacity=CAPACITY, device=dev, **kw)
+        m.estimate_ground(chain[0])
+        cf = _all_captured(m, label)[0]
+        timing[f"{label}_frame_ms"] = {
+            "eager": frame_ms(eager, xs[:frames]),
+            "captured": frame_ms(lambda k, xs: cf(xs[k], len(chain[k])), xs)}
+        nodes, why = probe.graph_nodes(cf)
+        out["graph_nodes"][label] = nodes
+        out["pool_mb"][label] = cf.pool_bytes / 2**20
+        print(f"eager vs captured, {label} frame median (CUDA events; eager over {frames} "
+              f"frames, captured over {n}): {timing[f'{label}_frame_ms']['eager']:.3f} ms vs "
+              f"{timing[f'{label}_frame_ms']['captured']:.3f} ms; graph "
+              f"{nodes if nodes is not None else why} nodes, pool "
+              f"{cf.pool_bytes / 2**20:.2f} MB; {card}")
+
     stack6, npts6 = bench.build_stack(scans[:6], 1, CAPACITY)
     stack = torch.from_numpy(np.tile(stack6, (4, 1, 1))).to(dev)
     npts = [int(k) for k in np.tile(npts6, 4)]
@@ -1539,7 +1720,9 @@ def main() -> int:
     )
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.ops import patch_reduce_kernel as kr
     from patchworkpp_tpu_torch.ops import sharded_fit as sf
+    from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
     from patchworkpp_tpu_torch.ops.tiled_fit import FitProgram, tiled_fit
     from patchworkpp_tpu_torch.pipeline import make_frame_fn
 
@@ -1555,12 +1738,12 @@ def main() -> int:
     # ---- 1. card and build (one nvcc per source, started together)
     print(f"card: {card}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(fkg.build), pool.submit(fk.build), pool.submit(sf.build)]:
+    with ThreadPoolExecutor(4) as pool:
+        for fut in [pool.submit(m.build) for m in (fkg, fk, sf, kr)]:
             fut.result()
     build_s = time.perf_counter() - t0
-    print(f"fit kernels build (K1, K2 and KS in parallel): {build_s:.2f} s")
-    for module in (fkg, fk, sf):
+    print(f"kernels build (K1, K2, KS and KR in parallel): {build_s:.2f} s")
+    for module in (fkg, fk, sf, kr):
         print(module.build_log().strip())
 
     # ---- 2. scan
@@ -1639,6 +1822,12 @@ def main() -> int:
     check_k2(fi_crowd, k1_crowd, "crowded patch")
     check_k2(fi_one, k1_one, "one-tile patches")
 
+    # KR, the unfused engine's per-patch sum, on every call of an unfused
+    # frame of the main scan and of the crowded cloud
+    kr_main = record_patch_reduce(p, scans[0])
+    kr_crowd = record_patch_reduce(p, make_crowded_scan(args.seed))
+    kr_err = max(check_kr(kr_main, "main scan"), check_kr(kr_crowd, "crowded patch"))
+
     # ---- 3b. KS's two routes vs the plain sharded fits on the card, chunks=2, 4, 8
     ks_main = sharded_fit_phase(p, scans[0], "main scan")
     ks_crowd = sharded_fit_phase(p, make_crowded_scan(args.seed), "crowded patch")
@@ -1648,31 +1837,44 @@ def main() -> int:
                              f"{fkg.CAP_TILES}-tile cap")
 
     # ---- 4. main paths on the card vs the CPU path
+    counters = {"fit_grid": fkg.fused_fit_grid, "fit_onehot": fk.fused_fit,
+                "fit_sharded": sf.sharded_fit, "patch_reduce": kr.patch_reduce_kernel}
+
     def drive(fused, frames, want):
-        """``frames`` chained frames of engine ``fused`` on the card and
-        on the CPU; labels and state must agree. Every launch count is
-        set to 0 just before the card's run and read just after; ``want``
-        names the kernel that must have launched once a frame (the other
-        must not have launched)."""
+        """``frames`` chained frames of engine ``fused`` on the card, a
+        captured frame replayed each, and on the CPU; labels and state must
+        agree. Every launch count is set to 0 just before the card's run and
+        read just after; ``want`` maps the kernels of the engine to their
+        launches a frame (every other kernel must not have launched). The
+        unfused engine's replays must also equal its eager frames bit for
+        bit (every FrameResult field, and the state after each frame)."""
         gpu = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
         gpu.estimate_ground(scans[0])  # builds the kernel, captures the frame
         gpu.reset()
-        fkg.fused_fit_grid.launches = 0
-        fk.fused_fit.launches = 0
-        res, states = [], {}
+        for fn in counters.values():
+            fn.launches = 0
+        res, states, kept = [], {}, []
         for i, s in enumerate(scans[:frames]):
             res.append(gpu.estimate_ground(s))
+            if fused is False:
+                kept.append((gpu.last_result, gpu.state))
             if i == CHECKED_FRAME:
                 states["card"] = gpu.state.to_numpy()
-        counts = {"fit_grid": fkg.fused_fit_grid.launches,
-                  "fit_onehot": fk.fused_fit.launches}
+        counts = {k: fn.launches for k, fn in counters.items()}
         for k, n in counts.items():
-            expect = frames if k == want else 0
+            expect = frames * want.get(k, 0)
             if n != expect:
                 raise AssertionError(f"fused={fused!r}: {k} launched {n} times "
                                      f"in {frames} frames, expected {expect}")
-        if fused is not False:  # the fused engines run captured
-            _all_captured(gpu, f"fused={fused!r}")
+        _all_captured(gpu, f"fused={fused!r}")
+        if fused is False:
+            eager = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
+            for i, s in enumerate(scans[:frames]):
+                eager._estimate(s, captured=False)
+                _same_frame(kept[i], (eager.last_result, eager._state),
+                            f"fused=False frame {i}, captured vs eager")
+            print(f"fused=False: {frames} captured frames == eager frames bit for bit "
+                  "(every FrameResult field and the state after each)")
         cpu = PatchworkPP(p, capacity=CAPACITY, device="cpu", fused=fused)
         for i, s in enumerate(scans[:frames]):
             r = cpu.estimate_ground(s)
@@ -1709,10 +1911,13 @@ def main() -> int:
               f"cpu max |err| {state_err} (0 required for {list(exact)})")
         return res, counts
 
-    gpu_res, counts_k1 = drive(None, args.frames, "fit_grid")
-    onehot_res, counts_k2 = drive("onehot", args.frames, "fit_onehot")
+    gpu_res, counts_k1 = drive(None, args.frames, {"fit_grid": 1})
+    onehot_res, counts_k2 = drive("onehot", args.frames, {"fit_onehot": 1})
     launches, launches_k2 = counts_k1["fit_grid"], counts_k2["fit_onehot"]
-    unfused_res, _ = drive(False, UNFUSED_FRAMES, None)
+    # KR once a patch_reduce call, the calls of one unfused frame (11 at
+    # default Params: 4 LPR sums, 7 moment sums)
+    unfused_res, counts_kr = drive(False, args.frames, {"patch_reduce": len(kr_main)})
+    launches_kr = counts_kr["patch_reduce"]
     engines = {"tiled": gpu_res, "onehot": onehot_res, "unfused": unfused_res}
     names = list(engines)
     for a in range(len(names)):
@@ -1783,6 +1988,23 @@ def main() -> int:
     plain_stage_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: tiled_fit(
         fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
         fi.consts[0], p, comm=comm), reps=3)
+    # KR on the main scan's first moment sum (10 columns) and the crowded
+    # cloud's; its plain version; index_add_ (one PyTorch call, atomics in no
+    # fixed order) on the same inputs
+    kr_feats, kr_pid, kr_start = next(c for c in kr_main if c[0].shape[1] == 10)
+    kr_ms = cuda_ms(lambda: kr.patch_reduce_kernel(kr_feats, kr_start), reps=50)
+    kr_plain_ms = cuda_ms(lambda: patch_reduce_reference(kr_feats, kr_pid, kr_start), reps=3,
+                          warmup=1)
+    kr_acc = torch.zeros((kr_start.shape[0] - 1, kr_feats.shape[1]), device=dev)
+    kr_pid64 = kr_pid.to(torch.int64)
+    kr_library_ms = cuda_ms(lambda: kr_acc.index_add_(0, kr_pid64, kr_feats), reps=50)
+    kc_feats, _, kc_start = next(c for c in kr_crowd if c[0].shape[1] == 10)
+    kr_crowd_ms = cuda_ms(lambda: kr.patch_reduce_kernel(kc_feats, kc_start), reps=20)
+    # its bound: every feature and start read once, the sums written once;
+    # one add a feature
+    kr_bytes = 4 * (kr_feats.numel() + kr_start.numel() + kr_acc.numel())
+    kr_t_bytes, kr_t_ops = kr_bytes / H100_BYTES_PER_S, kr_feats.numel() / H100_F32_FLOPS
+    kr_bound_ms = max(kr_t_bytes, kr_t_ops) * 1e3
     xs_dev = []
     for s in scans:
         x = torch.zeros((CAPACITY, 4), device=dev)
@@ -1813,7 +2035,7 @@ def main() -> int:
     _, per_frame_k2 = frame_times(make_frame_fn(p, device=dev, fused="onehot"), len(scans))
     frame_k2_ms = float(np.median(per_frame_k2))
     _, per_frame_unf = frame_times(make_frame_fn(p, device=dev, fused=False),
-                                   min(UNFUSED_FRAMES, len(scans)), warmup=1)
+                                   min(EAGER_UNFUSED_FRAMES, len(scans)), warmup=1)
     frame_unf_ms = float(np.median(per_frame_unf))
 
     npasses, kind = fkg._pass_config(p)[:2]
@@ -1878,8 +2100,14 @@ def main() -> int:
     print(f"fit stage of a chunks=2 frame (CUDA events, both chunks and their meetings): "
           f"KS cluster {ks_stage_ms:.3f} ms, KS phases {ks_phase_stage_ms:.3f} ms, plain "
           f"tiled_fit(comm) {plain_stage_ms:.3f} ms; chunks=2 frame median "
-          f"{multi['chunked_frame_ms']:.3f} ms, 2-rank frame median "
-          f"{multi['two_rank_frame_ms']:.3f} ms; {card}")
+          f"{graphs['timing']['chunks=2_frame_ms']['captured']:.3f} ms captured, "
+          f"{graphs['timing']['chunks=2_frame_ms']['eager']:.3f} ms eager, 2-rank frame "
+          f"median {multi['two_rank_frame_ms']:.3f} ms; {card}")
+    print(f"KR {kr_ms:.4f} ms a call ({kr_feats.shape[0]} rows x {kr_feats.shape[1]} "
+          f"columns, {kr_start.shape[0] - 1} patches), plain on the card {kr_plain_ms:.3f} ms, "
+          f"index_add_ {kr_library_ms:.4f} ms, bound {kr_bound_ms:.5f} ms ({kr_bytes} B), "
+          f"crowded-patch cloud {kr_crowd_ms:.4f} ms; {launches_kr} launches in "
+          f"{args.frames} unfused frames; {card}")
     kernels = {"kernels": [{
         "name": "fit_grid",
         "route": "cuda",
@@ -1910,7 +2138,7 @@ def main() -> int:
         "route": "cuda",
         "source": "patchworkpp_tpu_torch/csrc/fit_sharded.cu",
         "replaces": "patchworkpp_tpu/ops/tiled_fit.py:254",
-        "launches": multi["chunked_launches"]["fit_sharded"],
+        "launches": multi["chunked_launches"][2]["fit_sharded"],
         "max_abs_err": max(ks_main["max_abs_err"], ks_crowd["max_abs_err"]),
         "ms": cluster_ms[2],
         "plain_ms": cluster_plain_ms,
@@ -1936,6 +2164,19 @@ def main() -> int:
         "library_ms": None,
         "stage_ms": ks_phase_stage_ms,
         "plain_stage_ms": plain_stage_ms,
+    }, {
+        "name": "patch_reduce",
+        "route": "cuda",
+        "source": "patchworkpp_tpu_torch/csrc/patch_reduce.cu",
+        "replaces": "patchworkpp_tpu/ops/onehot.py:281",
+        "launches": launches_kr,
+        "max_abs_err": kr_err,
+        "ms": kr_ms,
+        "plain_ms": kr_plain_ms,
+        "bound_ms": kr_bound_ms,
+        "bound_by": "bytes" if kr_t_bytes >= kr_t_ops else "operations",
+        "library_ms": kr_library_ms,
+        "crowded_ms": kr_crowd_ms,
     }]}
     record = {
         "card": card, "build_s": build_s, "frame_ms": frame_ms,
@@ -1956,13 +2197,14 @@ def main() -> int:
     if args.profile:
         record["profile"] = {}
         for label, fused, n in (("tiled", None, 5), ("onehot", "onehot", 5),
-                                ("unfused", False, UNFUSED_FRAMES)):
+                                ("unfused", False, EAGER_UNFUSED_FRAMES)):
             print(f"engine {label}:")
             fn = make_frame_fn(p, device=dev, fused=fused)
             st, _ = fn(init_state(p, dev), xs_dev[0], npts[0])  # warm-up
             record["profile"][label] = profile_frames(
                 fn, st, xs_dev, npts, n=min(n, len(scans)))
-        for label, fused in (("tiled captured", None), ("onehot captured", "onehot")):
+        for label, fused in (("tiled captured", None), ("onehot captured", "onehot"),
+                             ("unfused captured", False)):
             print(f"engine {label}:")
             m = PatchworkPP(p, capacity=CAPACITY, device=dev, fused=fused)
             m.estimate_ground(scans[0])  # builds and captures, outside the trace

@@ -3,6 +3,7 @@ of a frame or a sequence.
 
 The JAX package never runs its frame op by op: every single-device entry
 point compiles it (``models/patchworkpp.py:207``, ``pipeline.py:1020-1028``,
+``parallel/chunked.py:89`` and ``:218``, ``parallel/sharded.py:85``,
 ``cli/bench.py``, ``cli/soak.py``, ``cli/stream_bench.py``), and a sequence
 is one device program. Run eagerly from Python, the port's fused frame
 issues some 1,400 small launches whose host time is most of the frame.
@@ -27,19 +28,27 @@ capacity, whatever B is.
 
 Before capture the frame runs a few times on a side stream, as
 ``torch.cuda.graphs`` requires: that builds the kernels with nvcc, sets
-their shared-memory attributes at their first call and makes K1's cached
-pass-program tensor, none of which a capture may do. The kernel wrappers
+their shared-memory attributes at their first call, makes K1's cached
+pass-program tensor and has KS's cluster route query its occupancy once,
+none of which a capture may do. The kernel wrappers
 count a launch at each Python call, so a capture would count once and a
 replay never: the capture's count is taken back and each replay adds the
 launches it holds.
 
-Only the fused engines (K1, K2) on one device are captured. The unfused
-engine (a host read in ``ops/onehot.py:patch_reduce``), a sharded or
-chunked frame (exchanges through the host between launches, chunks taking
-turns in threads) and the profiled frame (its per-stage ranges) run
-eagerly; :meth:`CapturedFrame.capture` raises for them and for buffers on
-the CPU, and never falls back. On the CPU the same static-buffer step runs
-eagerly, which is how the tests hold its logic to the eager chain.
+Every engine on one card is captured: the fused ones (K1, K2), the
+unfused one (its per-patch sums the kernel KR, which reads nothing back to
+the host), and the chunked frame of ``parallel/chunked.py``, whose chunk
+threads issue their work in turns on the capturing stream, so that the
+graph holds every chunk's kernels in that order (KS's cluster route for
+up to 8 chunks, its phase route beyond) and a replay runs them with no
+thread. What a frame step cannot be captured for it says in its
+``eager_only`` (``pipeline.FrameComm.eager_only``): a comm over a process
+group (gloo gathers through the host; an NCCL group spans cards), and the
+shard x chunk composition over one. The profiled frame (its per-stage
+ranges) also runs eagerly. :meth:`CapturedFrame.capture` raises for them
+and for buffers on the CPU, and never falls back. On the CPU the same
+static-buffer step runs eagerly, which is how the tests hold its logic to
+the eager chain.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 
 from patchworkpp_tpu_torch.ops.fit_kernel import fused_fit
 from patchworkpp_tpu_torch.ops.fit_kernel_grid import fused_fit_grid
+from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
 from patchworkpp_tpu_torch.ops.sharded_fit import sharded_fit
 from patchworkpp_tpu_torch.params import Params
 from patchworkpp_tpu_torch.pipeline import FrameResult
@@ -59,13 +69,15 @@ from patchworkpp_tpu_torch.state import AdaptiveState, init_state
 # Eager frames run before capture (torch.cuda.graphs' side-stream warm-up).
 WARMUP_FRAMES = 3
 # The kernel wrappers whose ``launches`` counters a replay advances.
-COUNTED = (fused_fit_grid, fused_fit, sharded_fit)
+COUNTED = (fused_fit_grid, fused_fit, sharded_fit, patch_reduce_kernel)
 
 
 def _refusal(frame) -> str | None:
-    """Why ``frame`` cannot be captured (None if it can): the reason
-    ``pipeline.make_frame_fn`` attaches as ``eager_only``."""
-    return getattr(frame, "eager_only", "not a frame step of pipeline.make_frame_fn")
+    """Why ``frame`` cannot be captured (None if it can): the reason that
+    ``pipeline.make_frame_fn`` and ``parallel/chunked.py`` attach to their
+    steps as ``eager_only``."""
+    return getattr(frame, "eager_only", "not a frame step of pipeline.make_frame_fn "
+                   "or parallel/chunked.py")
 
 
 class CapturedFrame:

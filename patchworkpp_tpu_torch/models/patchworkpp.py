@@ -4,10 +4,10 @@ cpp/patchworkpp/include/patchwork/patchworkpp.h:114-235).
 
 NumPy in / NumPy out. The frame runs on ``device`` ("cuda" by default) and
 the adaptive state stays there between frames, in static buffers that each
-frame updates in place. On the card a fused engine's frame is a captured
-CUDA graph, one per (RNR setting, capacity), as the JAX facade jits one
-(``graphs.py``); the unfused engine, the chunked frames and the CPU run the
-same static-buffer step eagerly. A scan is uploaded as the 8192-row bucket
+frame updates in place. On the card the frame of every engine, chunked or
+not, is a captured CUDA graph, one per (RNR setting, capacity), as the JAX
+facade jits one (``graphs.py``); the CPU runs the same static-buffer step
+eagerly. A scan is uploaded as the 8192-row bucket
 that holds its rows and zero-extended to the capacity on the device; each
 frame's result, or each run of frames', comes back to the host in one
 device -> host copy of one packed buffer.
@@ -125,12 +125,13 @@ class PatchworkPP:
     to the next multiple of 8192 rows. ``fused`` picks the engine
     (``pipeline.make_frame_fn``): None/"tiled", True/"grid" and
     "grid_iota" run the fit kernel K1, "onehot" the unrolled fit kernel K2,
-    False the unfused engine. ``chunks`` = K > 1 runs each frame as K row
-    blocks on the device (``parallel/chunked.py``: the point-sharded
-    program's emulation, not a speed lever; "tiled" or False only, and the
-    tiled fit then runs the sharded fit kernel KS, not K1); the capacity must
-    then be a multiple of K (a fixed one that is not raises; the automatic
-    one rounds up to a multiple of lcm(8192, K)).
+    False the unfused engine (its per-patch sums the kernel KR).
+    ``chunks`` = K > 1 runs each frame as K row blocks on the device
+    (``parallel/chunked.py``: the point-sharded program's emulation, not a
+    speed lever; "tiled" or False only, and the tiled fit then runs the
+    sharded fit kernel KS, not K1); the capacity must then be a multiple of
+    K (a fixed one that is not raises; the automatic one rounds up to a
+    multiple of lcm(8192, K)).
     """
 
     def __init__(
@@ -152,9 +153,9 @@ class PatchworkPP:
         self._chunks = chunks
         # (enable_rnr, capacity, captured) -> the frame over the state buffers
         self._frames = {}
-        # the fused engines on the card run captured; the unfused engine,
-        # the chunked frames and the CPU run the same step eagerly
-        self._capture = device.type == "cuda" and chunks == 1 and fused is not False
+        # every engine on the card runs captured; the CPU runs the same step
+        # eagerly
+        self._capture = device.type == "cuda"
         self._state = init_state(self.params, device)
         self.last_result: Optional[FrameResult] = None
 
@@ -205,8 +206,7 @@ class PatchworkPP:
                ) -> CapturedFrame:
         """The frame of this engine with RNR on or off at capacity ``cap``
         over the state buffers (JAX ``_get_fn``'s key), built once: captured
-        on the card unless the engine runs eagerly or ``captured`` is False
-        (the profiled frame)."""
+        on the card unless ``captured`` is False (the profiled frame)."""
         captured = self._capture if captured is None else captured
         key = (enable_rnr, cap, captured)
         cf = self._frames.get(key)
@@ -215,10 +215,9 @@ class PatchworkPP:
                 self.params.replace(enable_RNR=enable_rnr)
             )
             if self._chunks > 1:
-                from patchworkpp_tpu_torch.parallel.chunked import make_chunked_frame_fn
+                from patchworkpp_tpu_torch.parallel.chunked import chunked_step
 
-                frame = make_chunked_frame_fn(p, self._chunks, self.geom, self._fused,
-                                              self.device)
+                frame = chunked_step(p, self._chunks, self.geom, self._fused, self.device)
             else:
                 frame = make_frame_fn(p, self.geom, self.device, fused=self._fused)
             cf = CapturedFrame(frame, cap, self._state)

@@ -7,7 +7,9 @@ slow on the TPU. Here a lookup is a gather, which returns the same values.
 A reduction is a per-patch sum over the sorted rows in a fixed order, the
 same on the CPU and on the card (``index_add_``'s CUDA atomics have none):
 each patch's run is cut into 128-row chunks, each chunk is summed in
-``ops.tree_sum``'s order, and a patch's chunk sums are added in order.
+``ops.tree_sum``'s order, and a patch's chunk sums are added in order. On
+the card it is the kernel KR (``ops/patch_reduce_kernel.py``), on the CPU its
+plain version :func:`patch_reduce_reference`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from patchworkpp_tpu_torch.ops import tree_sum
+from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
 
 # The padded patch space: 504 patches and the overflow bucket, padded to
 # 512 (the JAX package's ``ops/onehot.py:SPAD``; ``CZMGeometry.spad``).
@@ -36,8 +39,24 @@ def patch_reduce(feats: torch.Tensor, patch_id: torch.Tensor,
                  start: torch.Tensor) -> torch.Tensor:
     """(P, C) per-row features -> (S, C) per-patch sums.
 
-    ``patch_id`` is nondecreasing (sorted rows) and ``start`` (S+1,) holds
-    each patch's first row, as in :class:`~.segments.SortedPoints`."""
+    ``patch_id`` is nondecreasing (sorted rows) and ``start`` (S+1,) int32
+    holds each patch's first row, as in :class:`~.segments.SortedPoints`.
+    On a CUDA tensor this is one launch of the kernel KR
+    (``ops/patch_reduce_kernel.py:patch_reduce_kernel``, which reads ``start``
+    only, on the card), or it raises; on a CPU tensor it is the plain
+    :func:`patch_reduce_reference`. Both give the same bits."""
+    if feats.device.type == "cpu":
+        return patch_reduce_reference(feats, patch_id, start)
+    return patch_reduce_kernel(feats, start)
+
+
+def patch_reduce_reference(feats: torch.Tensor, patch_id: torch.Tensor,
+                           start: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`patch_reduce` on any device: the rows
+    scattered into their patches' 128-row chunks, every chunk summed with
+    ``tree_sum``, then one step a chunk rank up to the longest patch's
+    count (read to the host) adding each patch's chunk sum, +0.0 past its
+    own count."""
     p, c = feats.shape
     s = start.shape[0] - 1
     dev = feats.device

@@ -16,6 +16,14 @@ On CUDA every chunk thread launches on the caller's device and current
 stream (``torch.cuda.current_stream`` is per thread, so the caller's is
 passed in): the chunks' kernels queue on one stream, in the order the
 threads issue them, and each hook's stack follows the tensors it reads.
+Without an outer group every exchange is such a device op, so the whole
+chunked frame can be captured as one CUDA graph (``graphs.py``): the
+capture is taken on the caller's side stream, where the threads issue
+their work in turn order, and a replay runs every chunk's kernels with no
+thread at all. On the card :func:`make_chunked_frame_fn` and
+:func:`make_chunked_sequence_fn` return that compiled form, as the JAX
+package returns ``jax.jit`` of its vmapped frame; the shard x chunk
+composition gathers across processes and stays eager.
 
 Like the JAX package's, this is a correctness and emulation feature and the
 building block of the shard x chunk composition, not a speed lever: under
@@ -122,6 +130,15 @@ class ChunkTransport:
         self.chunk = chunk
         self.index = chunk + (exchange.outer.index * exchange.n if exchange.outer else 0)
 
+    @property
+    def eager_only(self) -> str | None:
+        """None without an outer group (the chunks' stacks are device ops on
+        the caller's stream), else why the composition runs eagerly."""
+        if self.exchange.outer is None:
+            return None
+        return ("shard x chunk: the outer process group's gathers cross processes, so "
+                "the composition runs eagerly")
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return self.exchange.gather(self.chunk, x)
 
@@ -188,7 +205,7 @@ def _chunk_frames(params, geom, device, fused, num_chunks, outer=None):
     field chunk 0's (the same in every chunk)."""
     exchange, _, frames = _chunk_wiring(params, geom, device, fused, num_chunks, outer)
 
-    def fn(state, rows: torch.Tensor, npts: int):
+    def fn(state, rows: torch.Tensor, npts):
         r = rows.shape[0] // num_chunks
         stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
         outs = run_chunks(exchange, [
@@ -198,6 +215,8 @@ def _chunk_frames(params, geom, device, fused, num_chunks, outer=None):
         return outs[0][0], outs[0][1]._replace(
             ground_mask=torch.cat([res.ground_mask for _, res in outs]))
 
+    # every chunk's frame is on the same kind of comm
+    fn.eager_only = frames[0].eager_only
     return fn
 
 
@@ -231,6 +250,25 @@ def _check_rows(rows: int, num_chunks: int, what: str) -> None:
         raise ValueError(f"{what} {rows} not divisible by num_chunks={num_chunks}")
 
 
+def chunked_step(params: Params, num_chunks: int, geom: CZMGeometry, fused,
+                 device: torch.device):
+    """The chunked frame step itself, ``fn(state, points, npts) -> (state,
+    FrameResult)``, run eagerly wherever it is called: what
+    :func:`make_chunked_frame_fn` compiles, and what the facade captures
+    over its own state buffers (``models/patchworkpp.py``). ``npts`` is an
+    int or a 0-d tensor on ``device``; ``num_chunks=1`` is the plain frame."""
+    if num_chunks == 1:
+        return make_frame_fn(params, geom, device, fused)
+    run = _chunk_frames(params, geom, device, fused, num_chunks)
+
+    def fn(state, points: torch.Tensor, npts):
+        _check_rows(points.shape[0], num_chunks, "point capacity")
+        return run(state, points, npts)
+
+    fn.eager_only = run.eager_only
+    return fn
+
+
 def make_chunked_frame_fn(
     params: Params,
     num_chunks: int,
@@ -246,19 +284,19 @@ def make_chunked_frame_fn(
     hooks and fixed-order reductions), so the result equals
     ``point_sharded.build`` over a group of ``num_chunks`` ranks.
     ``fused`` is None/"tiled" (the default, the sharded fit program: KS
-    on the card) or False (the unfused engine); ``num_chunks=1`` returns
-    the plain frame with this engine selection."""
+    on the card) or False (the unfused engine); ``num_chunks=1`` is the
+    plain frame with this engine selection.
+
+    On the card this is a ``graphs.CompiledFrame`` (the step captured as a
+    CUDA graph per capacity, replayed a call; raises where it cannot be
+    captured), as the JAX package jits it; on the CPU the step itself."""
     dev = resolve_device(device)
-    geom = geom or CZMGeometry.create(params)
-    if num_chunks == 1:
-        return make_frame_fn(params, geom, dev, fused)
-    run = _chunk_frames(params, geom, dev, fused, num_chunks)
+    step = chunked_step(params, num_chunks, geom or CZMGeometry.create(params), fused, dev)
+    if dev.type != "cuda":
+        return step
+    from patchworkpp_tpu_torch.graphs import CompiledFrame
 
-    def fn(state, points: torch.Tensor, npts: int):
-        _check_rows(points.shape[0], num_chunks, "point capacity")
-        return run(state, points, npts)
-
-    return fn
+    return CompiledFrame(step, params, dev)
 
 
 def make_chunked_sequence_fn(
@@ -271,8 +309,16 @@ def make_chunked_sequence_fn(
     """Chunked analog of ``pipeline.make_sequence_fn``: ``fn(state, stack,
     npts) -> (state, FrameResult)`` over a (B, P, 4) stack, the chunked
     frame in order with the state threaded through, every field stacked on
-    a leading B axis (equal to the frame loop, bit for bit)."""
-    return sequence_of(make_chunked_frame_fn(params, num_chunks, geom, fused, device))
+    a leading B axis (equal to the frame loop, bit for bit). On the card a
+    ``graphs.CompiledSequence`` (the frame graph replayed once a scan), on
+    the CPU the loop of eager steps."""
+    dev = resolve_device(device)
+    step = chunked_step(params, num_chunks, geom or CZMGeometry.create(params), fused, dev)
+    if dev.type != "cuda":
+        return sequence_of(step)
+    from patchworkpp_tpu_torch.graphs import CompiledSequence
+
+    return CompiledSequence(step, params, dev)
 
 
 def make_sharded_chunked_frame_fn(
@@ -307,5 +353,6 @@ def make_sharded_chunked_frame_fn(
         state, res = run(state, rows, npts)
         return state, res._replace(ground_mask=outer.gather_rows(res.ground_mask))
 
+    fn.eager_only = run.eager_only
     return fn
 

@@ -41,6 +41,12 @@ class MeshComm(FrameComm):
     def __init__(self, transport) -> None:
         self.transport = transport
 
+    @property
+    def eager_only(self) -> str | None:
+        """The transport's: None where its gathers are device ops on the
+        frame's card (the chunks of one process), else why not."""
+        return self.transport.eager_only
+
     def row_offset(self, n_local: int) -> int:
         return self.transport.index * n_local
 
@@ -108,6 +114,11 @@ class GroupTransport:
     host, gathered there and copied back: two ranks on one card (NCCL
     refuses a second rank on a card) exchange their statistics so. An NCCL
     group gathers on the card."""
+
+    # a frame over a process group runs eagerly: gloo gathers through the
+    # host, and an NCCL group's gathers reach other cards and processes
+    eager_only = ("a process group's gathers cross processes (gloo through the host), so "
+                  "a frame over a process group runs eagerly")
 
     def __init__(self, group=None) -> None:
         self.group = group if group is not None else dist.group.WORLD

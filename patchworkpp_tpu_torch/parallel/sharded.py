@@ -52,20 +52,26 @@ def make_batch_frame_fn(params: Params, group=None, device="cuda"):
     (default WORLD): ``fn(states, points, npts) -> (states, results)``.
 
     Every rank calls it with the whole batch: ``points`` (B, P, 4),
-    ``npts`` (B,) and states whose every field has a leading B axis, B
-    divisible by the group size. Each rank runs its contiguous block of the
-    streams through the plain frame (K1 on the card), one stream after
-    another, each with its own state; the
-    new states and the results are then gathered, so every rank returns
-    all B streams' (leading axis B on every field)."""
+    ``npts`` (B,) (ints, or a tensor whose entries stay tensors) and states
+    whose every field has a leading B axis, B divisible by the group size.
+    Each rank runs its contiguous block of the streams through the plain
+    frame (K1 on the card), one stream after another, each with its own
+    state: one ``graphs.CompiledFrame`` (on the card the frame captured as
+    a CUDA graph and replayed a stream, each stream's state copied in and
+    out; on the CPU the same step eagerly), as the JAX package jits its
+    per-device body. The new states and the results are then gathered
+    across the ranks, outside the graph, so every rank returns all B
+    streams' (leading axis B on every field)."""
+    from patchworkpp_tpu_torch.graphs import CompiledFrame
+
     dev = resolve_device(device)
-    frame = make_frame_fn(params, device=dev)
+    frame = CompiledFrame(make_frame_fn(params, device=dev), params, dev)
     transport = GroupTransport(group)
 
     def fn(states: AdaptiveState, points: torch.Tensor, npts):
         new_states, results = [], []
         for b in rank_rows(torch.arange(points.shape[0]), transport, "batch").tolist():
-            st, res = frame(stream_state(states, b), points[b], int(npts[b]))
+            st, res = frame(stream_state(states, b), points[b], npts[b])
             new_states.append(st)
             results.append(res)
         out_states = AdaptiveState(**{
@@ -75,6 +81,7 @@ def make_batch_frame_fn(params: Params, group=None, device="cuda"):
         out = FrameResult(*(transport.gather_rows(torch.stack(list(f))) for f in zip(*results)))
         return out_states, out
 
+    fn.compiled = frame  # the rank's compiled frame (is_captured on the card)
     return fn
 
 

@@ -10,8 +10,9 @@ fits run in one of two engines (``make_frame_fn(fused=...)``):
   pass program as one kernel launch, K1 (ops/fit_kernel_grid.py) or the
   unrolled K2 (ops/fit_kernel.py:fused_fit); CUDA kernels on the card,
   their plain versions on the CPU;
-- unfused (``fused=False``): the sorted layout and per-pass plain PyTorch
-  ops (lookups, fixed-order per-patch sums), JAX ``pipeline.py:frame``.
+- unfused (``fused=False``): the sorted layout and per-pass PyTorch ops
+  (lookups, and fixed-order per-patch sums: the kernel KR,
+  ops/patch_reduce_kernel.py, on the card), JAX ``pipeline.py:frame``.
 
 Reductions whose order the backend would choose (the adaptive buffers'
 mean and stdev, the per-patch heading, the per-patch moment sums) are
@@ -170,6 +171,18 @@ class FrameComm:
     state that crosses shards."""
 
     is_sharded = False
+
+    @property
+    def eager_only(self) -> str | None:
+        """Why a frame on this comm cannot be captured as a CUDA graph, or
+        None where it can: the frame's ``eager_only`` (``graphs.py``). A
+        comm can be captured where every exchange is a device op on the
+        frame's card, issued on its stream; a sharded comm says so itself
+        (``parallel/chunked.py:ChunkComm`` without an outer group)."""
+        if self.is_sharded:
+            return ("a sharded comm exchanges tensors through the host between the "
+                    "shards' launches, so a sharded frame runs eagerly")
+        return None
 
     def row_offset(self, n_local: int) -> int:
         """Global row index of this shard's first point."""
@@ -450,8 +463,8 @@ def make_frame_fn(
     """Build the frame step ``fn(state, points, npts) -> (state, FrameResult)``.
 
     ``points`` is a (P, 4) float32 tensor on ``device`` (padded), ``npts``
-    the number of real rows: an int, or on an unsharded frame a 0-d
-    integer tensor on ``device`` (the same bits). With a sharded ``comm``
+    the number of real rows: an int, or a 0-d integer tensor on ``device``
+    (the same bits). With a sharded ``comm``
     (``parallel/``) the step is the per-shard program: ``points`` are this
     shard's rows, ``npts`` the global count, the mask covers this shard's
     rows and every per-patch output is the merged one. ``fused`` picks the
@@ -463,8 +476,8 @@ def make_frame_fn(
       kernel here);
     - ``"onehot"``: the tiled layout and the unrolled fit kernel K2
       (``ops/fit_kernel.py:fused_fit``);
-    - ``False``: the unfused engine on the (patch, z)-sorted layout, plain
-      PyTorch ops.
+    - ``False``: the unfused engine on the (patch, z)-sorted layout, PyTorch
+      ops and the per-patch sum kernel KR (``ops/patch_reduce_kernel.py``).
 
     The fit kernels run as CUDA kernels on a CUDA device (the default) and
     as their plain versions when the caller asks for ``device="cpu"``.
@@ -472,13 +485,18 @@ def make_frame_fn(
     Under a sharded comm the tiled engine runs the fit program cut at its
     cross-shard points, the comm's LPR merge and moment reduction between
     its passes: on the card the sharded fit kernel KS
-    (``ops/sharded_fit.py``, ``csrc/fit_sharded.cu``), about a dozen
-    launches a frame, on the CPU its plain version, the composed
+    (``ops/sharded_fit.py``, ``csrc/fit_sharded.cu``: one cluster launch
+    for the chunks of a process, else about a dozen launches a shard), on
+    the CPU its plain version, the composed
     ``ops/tiled_fit.py:tiled_fit(comm=...)``. K1 holds a whole patch in one
     CTA and has no point at which to meet the other shards, so its launch
     count reads 0 on such frames (the JAX package's sharded tiled engine is
     XLA, never Pallas). The kernel modes raise, in the JAX package's
-    words."""
+    words.
+
+    The step's ``eager_only`` is the comm's (:attr:`FrameComm.eager_only`):
+    None where ``graphs.CapturedFrame`` may capture it as a CUDA graph, else
+    the reason it runs eagerly."""
     p = params
     comm = comm or FrameComm()
     sharded = comm.is_sharded
@@ -665,14 +683,15 @@ def make_frame_fn(
     def _local_npts(points: torch.Tensor, npts):
         """The real rows among this shard's: the global count less the
         shard's first row, clamped to [0, rows] (below 0 on the shards
-        past the last real point, above the rows on those before it). An
-        unsharded frame given a 0-d tensor (a captured frame's static
-        ``npts``, graphs.py) clamps it on its device: a host read would
-        bake the capture's value into the graph."""
+        past the last real point, above the rows on those before it). A
+        0-d tensor (a captured frame's static ``npts``, graphs.py) is
+        clamped on its device, the shard's first row a constant of the
+        build: a host read would bake the capture's value into the graph."""
         rows = points.shape[0]
-        if isinstance(npts, torch.Tensor) and not sharded:
-            return torch.clamp(npts, 0, rows)
-        return min(max(int(npts) - comm.row_offset(rows), 0), rows)
+        off = comm.row_offset(rows)
+        if isinstance(npts, torch.Tensor):
+            return torch.clamp(npts - off if off else npts, 0, rows)
+        return min(max(int(npts) - off, 0), rows)
 
     def fit_inputs(state: AdaptiveState, points: torch.Tensor, npts) -> FitInputs:
         """Sanitize, bin and tile one padded cloud: everything the fit
@@ -834,18 +853,12 @@ def make_frame_fn(
             )
 
     if fused is False:
-        frame.eager_only = (
-            "the unfused engine reads per-patch chunk counts back to the host "
-            "(ops/onehot.py:patch_reduce), so it runs eagerly"
-        )
+        frame.eager_only = comm.eager_only
         return frame
     # the fit kernel's inputs for a cloud, as the frame builds them (for
     # holding the kernel against its plain version at the frame's shapes)
     frame_fused.fit_inputs = fit_inputs
-    frame_fused.eager_only = (
-        "a sharded comm exchanges tensors through the host between the "
-        "shards' launches, so a sharded frame runs eagerly" if sharded else None
-    )
+    frame_fused.eager_only = comm.eager_only
     return frame_fused
 
 
@@ -857,11 +870,11 @@ def make_sequence_fn(
     (B, P, 4) stack of scans: the frame step (engine ``fused`` and ``comm``,
     as in :func:`make_frame_fn`) in order, the adaptive state threaded from
     each frame to the next, every FrameResult field stacked on a leading B
-    axis. The JAX package runs the chain as one device program; here a
-    fused engine's frame is one captured CUDA graph, replayed B times
+    axis. The JAX package runs the chain as one device program; here the
+    frame is one captured CUDA graph, replayed B times
     (``graphs.CompiledSequence``: one graph per capacity, whatever B is;
-    on the CPU its static-buffer step runs eagerly). The unfused engine and
-    a sharded comm read the host inside a frame and run as a loop of eager
+    on the CPU its static-buffer step runs eagerly). A comm that exchanges
+    through the host (``FrameComm.eager_only``) runs as a loop of eager
     frames."""
     frame = make_frame_fn(params, geom, device, fused, comm)
     if frame.eager_only:

@@ -16,7 +16,8 @@ JSON line with:
   tree's default route, the chunks' meetings included, CUDA events);
 - ``launches_per_frame``: KS launches of that frame for both chunks;
 - ``chunked_frame_ms``: the median ``make_chunked_frame_fn(p, 2)`` frame
-  (CUDA events) over the three scans, after a warm-up frame;
+  (CUDA events) over the three scans, after a warm-up frame (a replay of
+  its captured graph, in a tree whose chunked frame is compiled);
 - ``two_rank_frame_ms``: the median point-sharded frame of two gloo ranks
   on this card (host clock, rank 0; ``chip_smoke.py``'s rank worker);
 - ``k1_ms``, ``k2_ms``: the fit kernels on the main scan's tiled inputs;

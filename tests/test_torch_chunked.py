@@ -10,6 +10,15 @@ Labels must be equal to both. Against the JAX chunked engine, the patch
 tables are within test_torch_fit.py's tolerance (atol 5e-5 + rtol 5e-5)
 and the state within test_torch_frame.py's; between the port's own paths
 (the sequence and the frame loop) every field is equal bit for bit.
+
+The chunked frame is captured as a CUDA graph on the card (graphs.py), so
+two of its inputs are checked here as a capture sees them, bit for bit: a
+0-d ``npts`` (clamped on the device, less each chunk's first row) against
+the int at 0, inside chunk 0, on the chunk boundary and at the capacity;
+and the facade's frame for chunks=2 and 4 over its state buffers, with
+each run's outputs overwritten in place as a replay overwrites them
+(test_torch_graphs.py:_ReplayOnCpu), against the eager chunked chain (and
+the JAX chunked engine, at the tolerances above).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from patchworkpp_tpu.parallel import make_chunked_frame_fn as j_chunked
 from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
 from patchworkpp_tpu_torch.io.synthetic import make_scan
 from patchworkpp_tpu_torch.parallel import make_chunked_frame_fn, make_chunked_sequence_fn
+from patchworkpp_tpu_torch.parallel.chunked import chunked_step
+from patchworkpp_tpu_torch.params import CZMGeometry
 from patchworkpp_tpu_torch.pipeline import make_frame_fn, make_sequence_fn
 from test_fuzz_parity import CAP, synth_cloud
 from test_torch_fit import ATOL, RTOL
@@ -169,3 +180,61 @@ def test_default_device_is_cuda_and_refuses_without_it(monkeypatch):
         make_chunked_frame_fn(Params(), 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PatchworkPP(chunks=2)
+
+
+@pytest.mark.parametrize("count", ["zero", "chunk0", "boundary", "capacity"])
+def test_npts_tensor_equals_int_under_chunk_comm(clouds, count):
+    """Two chained frames of the K=2 chunked step (each chunk's frame under
+    its ChunkComm): a 0-d ``npts`` gives every FrameResult field and the
+    state of the int, bit for bit."""
+    p = Params()
+    step = chunked_step(p, 2, CZMGeometry.create(p), None, torch.device("cpu"))
+    n = {"zero": 0, "chunk0": CAP // 2 - 1000, "boundary": CAP // 2, "capacity": CAP}[count]
+    st_i = st_t = init_state(p, device="cpu")
+    for k, c in enumerate(clouds[:2]):
+        x = torch.from_numpy(_padded(c))
+        st_i, r_i = step(st_i, x, n)
+        st_t, r_t = step(st_t, x, torch.tensor(n, dtype=torch.int32))
+        for f in r_i._fields:
+            a, b = getattr(r_i, f), getattr(r_t, f)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (count, k, f)
+        for key, v in st_i.to_numpy().items():
+            np.testing.assert_array_equal(st_t.to_numpy()[key], v, err_msg=f"{count} {k} {key}")
+    assert (int(r_t.num_ground) == 0) == (count == "zero")
+
+
+@pytest.mark.parametrize("num_chunks", [2, 4])
+def test_facade_chunks_static_step_equals_eager_chain_and_jax(clouds, num_chunks):
+    """PatchworkPP(chunks=K)'s frame over its state buffers, replayed as a
+    graph is (outputs overwritten in place), over three chained scans: every
+    FrameResult field and the state equal the eager chunked chain's bit for
+    bit; the labels equal the JAX chunked engine's, the tables and state
+    within the tolerances above."""
+    from test_torch_graphs import _install_replay
+
+    p = Params()
+    m = PatchworkPP(capacity=CAP, chunks=num_chunks, device="cpu")
+    cf = _install_replay(m._frame(True, CAP))
+    step = make_chunked_frame_fn(p, num_chunks, device="cpu")
+    jfn = j_chunked(JParams(), num_chunks)
+    st = init_state(p, device="cpu")
+    jst = jstate.init_state(JParams())
+    for i, c in enumerate(clouds[:3]):
+        label = f"K={num_chunks} frame {i}"
+        pts = _padded(c)
+        res = m.estimate_ground(c)
+        got = m.last_result
+        st, want = step(st, torch.from_numpy(pts), len(c))
+        for f in want._fields:
+            np.testing.assert_array_equal(getattr(got, f).numpy(), getattr(want, f).numpy(),
+                                          err_msg=f"{label} {f}")
+        for key, v in st.to_numpy().items():
+            np.testing.assert_array_equal(m.state.to_numpy()[key], v, err_msg=f"{label} {key}")
+        jst, jres = jfn(jst, jnp.asarray(pts), jnp.int32(len(c)))
+        np.testing.assert_array_equal(res.ground_mask, np.asarray(jres.ground_mask)[: len(c)],
+                                      err_msg=label)
+        _assert_tables_close(want, jres, label)
+        _assert_state_close(jst, st, label)
+    assert cf.is_captured and cf.replays == 3

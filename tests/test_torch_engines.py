@@ -13,6 +13,18 @@
   (test_fuzz_parity.py:test_fuzz_engines_agree_on_edges).
 - Every mode of the switch reaches the engine the JAX package maps it to;
   an unknown mode raises the JAX package's ValueError.
+- The unfused engine's per-patch sum, ``ops.patch_reduce`` (the kernel KR on
+  the card, ``ops/patch_reduce_kernel.py``; its plain version
+  ``patch_reduce_reference`` on the CPU): the plain version equals, bit for
+  bit, a float32 sum written out here (128-row chunks from each patch's
+  first row, each summed by zero-padded halving, the chunk sums folded left
+  from +0.0, stopping at the patch's own chunk count) over empty patches,
+  one-chunk patches, -0.0 addends, cancelling sums and the overflow bucket;
+  it equals the JAX package's ``patch_reduce`` (a one-hot dot whose order
+  is the host's) within the float64 sum's 1e-5 of tests/test_ops.py. The
+  wrapper runs the plain version on a CPU tensor without counting, and KR
+  raises on a tensor that is not on CUDA; on the card (``gpu``) KR equals
+  the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -152,3 +164,143 @@ def test_unknown_mode_raises(mode):
     assert str(ours.value) == str(theirs.value)
     with pytest.raises(ValueError, match="unknown fused mode"):
         PatchworkPP(device="cpu", fused=mode).estimate_ground(synth_cloud(0, exact_edges=False))
+
+
+# ---------------------------------------------------------------- the per-patch sum
+
+def _patch_runs(rng, counts, cols):
+    """Sorted rows for per-patch ``counts`` (the last patch the overflow
+    bucket): (feats, patch_id, start) as numpy arrays."""
+    counts = np.asarray(counts)
+    start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    pid = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    feats = rng.normal(size=(int(counts.sum()), cols)).astype(np.float32)
+    return feats, pid, start
+
+
+def _fold_sum(feats, start):
+    """The per-patch sum as KR computes it, in float32 numpy: each patch's
+    rows in 128-row chunks, a chunk zero-padded and halved in place, the
+    chunk sums added left to right from +0.0 (its own chunks only)."""
+    out = np.zeros((len(start) - 1, feats.shape[1]), np.float32)
+    for s in range(len(start) - 1):
+        acc = np.zeros(feats.shape[1], np.float32)  # +0.0
+        for lo in range(start[s], start[s + 1], 128):
+            v = np.zeros((128, feats.shape[1]), np.float32)
+            rows = feats[lo:min(lo + 128, start[s + 1])]
+            v[: len(rows)] = rows
+            while len(v) > 1:
+                v = v[: len(v) // 2] + v[len(v) // 2:]
+            acc = acc + v[0]
+        out[s] = acc
+    return out
+
+
+def _kr_cases():
+    """name -> (feats, patch_id, start): the hazards of the fixed order."""
+    rng = np.random.default_rng(7)
+    cases = {}
+    # empty patches among one-chunk, exactly-one-chunk and multi-chunk ones,
+    # and a long overflow bucket last
+    cases["mixed"] = _patch_runs(rng, [0, 1, 5, 128, 0, 129, 300, 0, 0, 1000, 2, 700], 10)
+    # -0.0 addends: whole patches of -0.0 (one chunk, and more than one),
+    # and -0.0 scattered among values
+    f, pid, st = _patch_runs(rng, [3, 128, 256, 400, 1, 0, 90], 4)
+    f[: st[4]] = -0.0
+    f[st[4]:][rng.random(f[st[4]:].shape) < 0.5] = -0.0
+    cases["signed_zeros"] = (f, pid, st)
+    # cancelling sums: +x and -x in one chunk and across chunks, and huge
+    # terms that absorb small ones
+    f, pid, st = _patch_runs(rng, [256, 384, 129, 64], 3)
+    f[:, 0] = np.where(np.arange(len(f)) % 2, 1e7, -1e7).astype(np.float32)
+    f[: st[1], 1] = np.concatenate([f[:128, 1], -f[:128, 1]])
+    f[:, 2] = np.where(np.arange(len(f)) % 3 == 0, 3e8, 1.5).astype(np.float32)
+    cases["cancelling"] = (f, pid, st)
+    return cases
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["mixed", "signed_zeros", "cancelling"])
+def test_patch_reduce_plain_equals_chunk_fold(case):
+    """Tolerance 0: the plain version and the fold written here add the same
+    float32 values in the same tree and order; every patch of -0.0 sums to
+    +0.0 (the fold starts from +0.0)."""
+    from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
+
+    feats, pid, start = _kr_cases()[case]
+    got = patch_reduce_reference(torch.from_numpy(feats), torch.from_numpy(pid),
+                                 torch.from_numpy(start)).numpy()
+    want = _fold_sum(feats, start)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    counts = np.diff(start)
+    assert (_bits(got[counts == 0]) == 0).all()  # empty patches: +0.0
+    if case == "signed_zeros":
+        assert (_bits(got[:4]) == 0).all()  # -0.0 rows sum to +0.0, not -0.0
+
+
+def test_patch_reduce_matches_jax_patch_reduce():
+    """The port's fixed order against the JAX package's one-hot dot over the
+    same rows and the 512-wide patch space: within 1e-5 (rtol and atol, the
+    float64 reference's tolerance in tests/test_ops.py); the order differs,
+    so the bits may."""
+    from patchworkpp_tpu.ops.onehot import patch_reduce as j_patch_reduce
+
+    from patchworkpp_tpu_torch.ops import SPAD, patch_reduce
+
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 40, SPAD)
+    counts[::9] = 0
+    counts[17] = 700
+    feats, pid, start = _patch_runs(rng, counts, 10)
+    got = patch_reduce(torch.from_numpy(feats), torch.from_numpy(pid),
+                       torch.from_numpy(start)).numpy()
+    want = np.asarray(jax.jit(j_patch_reduce)(jnp.asarray(feats), jnp.asarray(pid)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_patch_reduce_runs_plain_on_cpu_without_counting():
+    """``ops.patch_reduce`` on CPU tensors is the plain version (KR is not
+    launched); KR itself refuses CPU and other non-CUDA tensors."""
+    from patchworkpp_tpu_torch.ops import patch_reduce
+    from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
+    from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
+
+    feats, pid, start = (torch.from_numpy(a) for a in _kr_cases()["mixed"])
+    before = patch_reduce_kernel.launches
+    got = patch_reduce(feats, pid, start)
+    assert patch_reduce_kernel.launches == before
+    np.testing.assert_array_equal(_bits(got), _bits(patch_reduce_reference(feats, pid, start)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        patch_reduce_kernel(feats, start)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        patch_reduce(feats.to("meta"), pid.to("meta"), start.to("meta"))
+
+
+def test_patch_reduce_argtypes_follow_extern_c_signature():
+    from test_torch_fit import _extern_c_argtypes
+
+    from patchworkpp_tpu_torch.ops import patch_reduce_kernel as kr
+
+    assert list(kr.ARGTYPES) == _extern_c_argtypes(kr.SOURCE, "ppk_patch_reduce")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mixed", "signed_zeros", "cancelling"])
+def test_cuda_patch_reduce_matches_plain_on_card(case):
+    """KR against its plain version on the same CUDA tensors: the same adds
+    in the same order, so bit for bit; one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py makes this check on the card)")
+    from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
+    from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
+
+    feats, pid, start = (torch.from_numpy(a).cuda() for a in _kr_cases()[case])
+    before = patch_reduce_kernel.launches
+    got = patch_reduce_kernel(feats, start)
+    torch.cuda.synchronize()
+    assert patch_reduce_kernel.launches == before + 1
+    want = patch_reduce_reference(feats, pid, start)
+    np.testing.assert_array_equal(_bits(got.cpu()), _bits(want.cpu()))

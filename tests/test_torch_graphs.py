@@ -18,8 +18,14 @@ at capacity 8192.
 - The facade keeps one frame per (RNR, capacity), all on its state buffers,
   which reset, load_state and assignment overwrite in place; its
   last_result survives the next frame.
-- Capture refuses the unfused engine, a sharded comm, a chunked frame and
-  buffers on the CPU; it never runs eagerly in their place.
+- Every engine's frame can be captured, the unfused one (its per-patch
+  sums the kernel KR on the card) and the chunked frame (its exchanges
+  device ops on one card) too: their ``eager_only`` is None, and they fail
+  to capture on the CPU only for their buffers. Capture refuses a sharded
+  comm, a frame over a process group (a one-rank gloo group here), the
+  shard x chunk composition over one, and buffers on the CPU; it never
+  runs eagerly in their place. The unfused engine's static-buffer step
+  equals its eager chain as the fused engines' does.
 - ``pipeline.segment`` equals the JAX package's ``segment``, and two
   threads calling it at once get what the same calls made one after
   another get.
@@ -148,7 +154,7 @@ def test_npts_tensor_is_clamped_to_the_rows():
 
 
 @pytest.mark.parametrize("replayed", [False, True], ids=["eager", "replayed"])
-@pytest.mark.parametrize("mode", ["tiled", "onehot"])
+@pytest.mark.parametrize("mode", ["tiled", "onehot", False])
 def test_static_step_equals_eager_chain(mode, replayed):
     """Six chained frames through the static buffers == the eager chain,
     every field, bit for bit; frame i's result unchanged after frame i+1."""
@@ -200,10 +206,11 @@ def test_sequence_equals_frame_loop(b):
 
 
 def test_eager_engines_make_eager_sequences():
-    """The unfused engine and a sharded comm keep the eager frame loop."""
+    """A sharded comm keeps the eager frame loop; the unfused engine, whose
+    per-patch sums no longer read the host, makes a compiled sequence."""
     p = Params()
-    assert not isinstance(tpipe.make_sequence_fn(p, device="cpu", fused=False),
-                          CompiledSequence)
+    assert isinstance(tpipe.make_sequence_fn(p, device="cpu", fused=False),
+                      CompiledSequence)
     assert not isinstance(tpipe.make_sequence_fn(p, device="cpu", comm=_Sharded()),
                           CompiledSequence)
 
@@ -281,29 +288,65 @@ class _Sharded(FrameComm):
     is_sharded = True
 
 
-@pytest.mark.parametrize("what", ["unfused", "sharded", "chunked", "cpu"])
-def test_capture_refuses_eager_frames(what):
-    """Capture raises, the frame is left uncaptured and the state as it was."""
-    from patchworkpp_tpu_torch.parallel.chunked import make_chunked_frame_fn
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A gloo process group of this one process, for the whole test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("what", ["unfused", "sharded", "chunked", "cpu", "group",
+                                  "shard_x_chunk"])
+def test_capture_refuses_eager_frames(what, request):
+    """Capture raises, the frame is left uncaptured and the state as it was.
+    The unfused and the chunked frame (the unfused engine chunked too) are
+    not eager: their ``eager_only`` is None, the capture refuses only their
+    CPU buffers, and the compiled wrapper takes them for the card."""
+    from patchworkpp_tpu_torch.graphs import _refusal
+    from patchworkpp_tpu_torch.parallel.chunked import (
+        chunked_step,
+        make_chunked_frame_fn,
+        make_sharded_chunked_frame_fn,
+    )
+    from patchworkpp_tpu_torch.parallel.point_sharded import GroupTransport, MeshComm
+    from patchworkpp_tpu_torch.params import CZMGeometry
 
     p = Params()
-    frame = {
-        "unfused": lambda: tpipe.make_frame_fn(p, device="cpu", fused=False),
-        "sharded": lambda: tpipe.make_frame_fn(p, device="cpu", comm=_Sharded()),
-        "chunked": lambda: make_chunked_frame_fn(p, 2, device="cpu"),
-        "cpu": lambda: tpipe.make_frame_fn(p, device="cpu"),
+    if what in ("group", "shard_x_chunk"):
+        request.getfixturevalue("one_rank_group")
+    frames = {
+        "unfused": lambda: [tpipe.make_frame_fn(p, device="cpu", fused=False)],
+        "sharded": lambda: [tpipe.make_frame_fn(p, device="cpu", comm=_Sharded())],
+        "chunked": lambda: [make_chunked_frame_fn(p, 2, device="cpu"),
+                            chunked_step(p, 4, CZMGeometry.create(p), False,
+                                         torch.device("cpu"))],
+        "cpu": lambda: [tpipe.make_frame_fn(p, device="cpu")],
+        "group": lambda: [tpipe.make_frame_fn(p, device="cpu",
+                                              comm=MeshComm(GroupTransport()))],
+        "shard_x_chunk": lambda: [make_sharded_chunked_frame_fn(p, 2, device="cpu")],
     }[what]()
-    match = {"unfused": "unfused engine", "sharded": "sharded comm",
-             "chunked": "not a frame step", "cpu": "CUDA tensors"}[what]
-    st = init_state(p, device="cpu")
-    cf = CapturedFrame(frame, CAP, st)
-    with pytest.raises(ValueError, match=match):
-        cf.capture()
-    assert not cf.is_captured
-    _assert_states_equal(init_state(p, device="cpu"), st, "state after a refused capture")
-    if what != "cpu":  # on the card the compiled wrapper refuses at once
+    eager = what in ("sharded", "group", "shard_x_chunk")
+    match = {"sharded": "sharded comm", "group": "process group",
+             "shard_x_chunk": "shard x chunk: .*process group"}.get(what, "CUDA tensors")
+    for frame in frames:
+        assert (_refusal(frame) is None) == (not eager)
+        st = init_state(p, device="cpu")
+        cf = CapturedFrame(frame, CAP, st)
         with pytest.raises(ValueError, match=match):
-            CompiledFrame(frame, p, device="cuda")
+            cf.capture()
+        assert not cf.is_captured
+        _assert_states_equal(init_state(p, device="cpu"), st, "state after a refused capture")
+        if what in ("unfused", "chunked"):  # built for the card, captured at first use
+            assert not CompiledFrame(frame, p, device="cuda").frames
+        elif eager:  # on the card the compiled wrapper refuses at once
+            with pytest.raises(ValueError, match=match):
+                CompiledFrame(frame, p, device="cuda")
 
 
 def test_segment_matches_jax_segment():

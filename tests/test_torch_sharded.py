@@ -12,7 +12,10 @@ capacity 8192, the 3-frame chain through the sequence and through the
 frame loop, the shard x chunk composition (ranks x 2 chunks) and one
 frame-parallel stream per rank. Between the port's own paths every
 FrameResult field and the state are equal bit for bit; against the JAX
-mesh program and the facades, the labels are equal.
+mesh program and the facades, the labels are equal. In this process, over
+a one-rank gloo group, the frame-parallel step (its streams through one
+``graphs.CompiledFrame``, eager on the CPU) equals the eager frame loop of
+each stream bit for bit.
 """
 
 from __future__ import annotations
@@ -198,6 +201,36 @@ def test_group_of_one_is_plain_frame(frames, tmp_path):
     for f in want._fields:
         np.testing.assert_array_equal(getattr(res, f).numpy(), getattr(want, f).numpy())
         np.testing.assert_array_equal(getattr(bres, f)[0].numpy(), getattr(want, f).numpy())
+
+
+def test_frame_parallel_compiled_equals_eager_loop(frames, tmp_path):
+    """Three streams, two chained batch calls (``npts`` as ints, then as a
+    tensor whose entries stay tensors): each stream's results and state
+    equal its own eager frame loop's, every field bit for bit."""
+    stack, npts = frames
+    p = Params()
+    frame = make_frame_fn(p, device="cpu")
+    states = [init_state(p, device="cpu") for _ in range(FRAMES)]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        fn = make_batch_frame_fn(p, device="cpu")
+        bst = batch_init_state(p, FRAMES, "cpu")
+        for call, n in enumerate((npts, torch.tensor(npts, dtype=torch.int32))):
+            pts = torch.from_numpy(np.roll(stack, call, axis=0).copy())
+            counts = n.roll(call) if isinstance(n, torch.Tensor) else list(np.roll(n, call))
+            bst, bres = fn(bst, pts, counts)
+            for b in range(FRAMES):
+                states[b], want = frame(states[b], pts[b], int(counts[b]))
+                for f in want._fields:
+                    np.testing.assert_array_equal(getattr(bres, f)[b].numpy(),
+                                                  getattr(want, f).numpy(),
+                                                  err_msg=f"call {call} stream {b} {f}")
+                for k, v in states[b].to_numpy().items():
+                    np.testing.assert_array_equal(getattr(bst, k)[b].numpy(), v,
+                                                  err_msg=f"call {call} stream {b} {k}")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_dryrun_multiproc_2x2():
