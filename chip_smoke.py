@@ -22,9 +22,11 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    on a cloud whose processed patches hold one tile each; K1 also on a
    small cloud with num_iter=4 (K2 refuses it); on each cloud K2's integer
    columns must equal K1's; KR against its plain version on the card and
-   on the CPU, bit for bit, on every ops.patch_reduce call of an unfused
-   frame of the scan and of the crowded-patch cloud (11 calls each, the
-   inputs recorded from the frame);
+   on the CPU, bit for bit, on every KR call of an unfused frame of the
+   scan and of the crowded-patch cloud (11 calls each, the inputs recorded
+   from the frame: 4 ops.patch_reduce calls in the generic mode, 7
+   ops.patch_moment_sums calls in the moment mode, whose monomial tables
+   the generic mode also sums);
 3b. hold KS's two routes against their plain versions on the card: the
    scan and the crowded-patch cloud at capacity 131072 as 2, 4 and 8
    chunks of the in-process transport (parallel/chunked.py), every chunk's
@@ -49,7 +51,10 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    default engine's thresholds, sensor height and elevation buffer bit for
    bit, and its whole state after frame 6 bit for bit); then
    the unfused engine (fused=False) over the same frames, captured too
-   (KR launched 11 times a frame, nothing else), its replays equal to its
+   (KR called 11 times a frame, 7 of them in the moment mode, nothing
+   else; KR's kernels count their own launches on the card: each call a
+   kr_chunk_sums or kr_moment_sums launch and a kr_fold launch), its
+   replays equal to its
    eager frames bit for bit (every FrameResult field, the state after each
    frame) and its labels to the CPU unfused engine's; the labels that
    differ between the three engines are printed, not asserted;
@@ -118,8 +123,11 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    the captured tiled frame's graph node count and device operations
    (scripts/frame_graph_probe.py, whose frame_ms times every frame of this
    phase) beside its ms a frame; eager against captured ms a frame of the
-   chunks=2, chunks=4 and unfused frames, with their graphs' node counts
-   and pools; and a 24-frame sequence as the
+   chunks=2, chunks=4, chunks=16 and unfused frames, with their graphs'
+   node counts and pools, KS's phase route's device ms and launches
+   in a chunks=16 replay, and the device busy ms and KR's kernels' device
+   ms and launches in an unfused replay (profiler traces); and a 24-frame
+   sequence as the
    frame graph replayed 24 times against the whole chain captured as one
    graph (ms a frame);
 4f. ops.masked_patch_moments (no engine runs it) on the main scan binned
@@ -129,9 +137,12 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    versions on the card and the frame of each engine, with CUDA events
    after warm-up (KS: the cluster route on 2, 4 and 8 chunks, the phase
    route as chunk 0's 12 recorded launches replayed, and the fit stage of
-   a chunks=2 frame for both routes and tiled_fit(comm); KR on a recorded
-   10-column moment sum, beside index_add_ on the same inputs and its
-   byte bound); print K1's time
+   a chunks=2 frame for both routes and tiled_fit(comm); KR's generic
+   mode on a recorded moment sum's 10-column table and on an LPR sum, the
+   generic mode's one shape on the main path, its moment mode on the same
+   moment sum's columns, both also on the crowded cloud, beside their
+   plain versions, index_add_ on the table and their byte bounds); print
+   K1's time
    per walk of the largest patch over its tiles (kernel ms / (tiles x
    walks)) and the kernels JSON line;
 6. print {"ok": true, "device": {...}} as the last line.
@@ -287,59 +298,199 @@ class PhaseRecorder:
 
 
 def record_patch_reduce(p, cloud, device="cuda") -> list:
-    """The inputs of every ``ops.patch_reduce`` call of one eager unfused frame
-    of ``cloud`` at capacity CAPACITY: (feats, patch_id, start), in call
-    order (KR's inputs at the main path's shapes: 4 LPR sums of 2 columns,
-    7 moment sums of 10 at default Params)."""
+    """The inputs of every KR call of one eager unfused frame of ``cloud`` at
+    capacity CAPACITY, in call order: ("reduce", (feats, patch_id, start))
+    for an ``ops.patch_reduce`` call (the 4 LPR sums of 2 columns at
+    default Params) and ("moments", ((qx, qy, qz, mask_f), patch_id,
+    start)) for an ``ops.patch_moment_sums`` call (the 7 moment sums)."""
     import torch
 
     from patchworkpp_tpu_torch import init_state, pipeline
 
-    calls, real = [], pipeline.patch_reduce
+    calls, real, real_mom = [], pipeline.patch_reduce, pipeline.patch_moment_sums
 
     def recording(feats, patch_id, start):
-        calls.append((feats.clone(), patch_id.clone(), start.clone()))
+        calls.append(("reduce", (feats.clone(), patch_id.clone(), start.clone())))
         return real(feats, patch_id, start)
+
+    def recording_mom(qx, qy, qz, mask_f, patch_id, start):
+        calls.append(("moments", (tuple(t.clone() for t in (qx, qy, qz, mask_f)),
+                                  patch_id.clone(), start.clone())))
+        return real_mom(qx, qy, qz, mask_f, patch_id, start)
 
     dev = torch.device(device)
     x = torch.zeros((CAPACITY, 4), device=dev)
     x[: len(cloud)] = torch.from_numpy(cloud).to(dev)
-    pipeline.patch_reduce = recording
+    pipeline.patch_reduce, pipeline.patch_moment_sums = recording, recording_mom
     try:
         pipeline.make_frame_fn(p, device=dev, fused=False)(init_state(p, dev), x, len(cloud))
     finally:
-        pipeline.patch_reduce = real
+        pipeline.patch_reduce, pipeline.patch_moment_sums = real, real_mom
     return calls
+
+
+def kr_table(call):
+    """A recorded KR call's (feats, patch_id, start): a moment call's
+    monomial table made by ops/moments.py:masked_moment_features_cols."""
+    from patchworkpp_tpu_torch.ops.moments import masked_moment_features_cols
+
+    mode, (a, pid, start) = call
+    return (masked_moment_features_cols(*a) if mode == "moments" else a), pid, start
 
 
 def check_kr(calls, label) -> float:
     """KR vs its plain version on the card and on the CPU on each recorded
-    call, bit for bit; one launch a call. Returns max |err| (0)."""
+    call, bit for bit, in the call's mode (a moment call: the moment mode
+    against the plain sum of the monomial table, and the generic mode on
+    that table); one call counted each (two launches). Returns max |err|
+    (0)."""
     import torch
 
+    from patchworkpp_tpu_torch.ops import patch_reduce_kernel as kr
     from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
-    from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
 
-    before, err = patch_reduce_kernel.launches, 0.0
-    for i, (feats, pid, start) in enumerate(calls):
-        out = patch_reduce_kernel(feats, start)
+    before, err = kr.patch_reduce_kernel.launches, 0.0
+    n_mom = sum(mode == "moments" for mode, _ in calls)
+    # the last call's table 4 times over (40 columns): the generic mode in
+    # two calls, of 32 and 8 columns
+    wide = kr_table(calls[-1])
+    wide = (torch.cat([wide[0]] * 4, dim=1), *wide[1:])
+    for i, call in enumerate([*calls, ("reduce", wide)]):
+        feats, pid, start = kr_table(call)
+        outs = {"generic": kr.patch_reduce_kernel(feats, start)}
+        if call[0] == "moments":
+            outs["moment mode"] = kr.patch_moment_sums_kernel(*call[1][0], start)
         torch.cuda.synchronize()
-        for where, ref in (("card", patch_reduce_reference(feats, pid, start)),
-                           ("cpu", patch_reduce_reference(feats.cpu(), pid.cpu(),
-                                                          start.cpu()))):
-            if not bitwise(out.cpu(), ref.cpu()):
-                raise AssertionError(f"KR vs plain ({where}), {label} call {i}: not bit for "
-                                     f"bit, max |err| {float((out.cpu() - ref.cpu()).abs().max())}")
-            err = max(err, float((out.cpu() - ref.cpu()).abs().max()))
-    if patch_reduce_kernel.launches != before + len(calls):
-        raise AssertionError(f"KR {label}: {patch_reduce_kernel.launches - before} launches "
-                             f"for {len(calls)} calls")
-    counts = np.diff(calls[0][2].cpu().numpy())
+        refs = (("card", patch_reduce_reference(feats, pid, start)),
+                ("cpu", patch_reduce_reference(feats.cpu(), pid.cpu(), start.cpu())))
+        for mode, out in outs.items():
+            for where, ref in refs:
+                if not bitwise(out.cpu(), ref.cpu()):
+                    raise AssertionError(
+                        f"KR {mode} vs plain ({where}), {label} call {i}: not bit for bit, "
+                        f"max |err| {float((out.cpu() - ref.cpu()).abs().max())}")
+                err = max(err, float((out.cpu() - ref.cpu()).abs().max()))
+    if kr.patch_reduce_kernel.launches != before + len(calls) + n_mom + 2:
+        raise AssertionError(f"KR {label}: {kr.patch_reduce_kernel.launches - before} calls "
+                             f"for {len(calls) + n_mom + 2}")
+    counts = np.diff(calls[0][1][2].cpu().numpy())
+    widths = sorted({c[1][0].shape[1] for c in calls if c[0] == "reduce"})
     print(f"KR vs plain (card and cpu), {label}: {len(calls)} calls of one unfused frame "
-          f"(columns {sorted({c[0].shape[1] for c in calls})}, {calls[0][0].shape[0]} rows, "
+          f"({len(calls) - n_mom} generic of {widths} columns, {n_mom} moment-mode calls "
+          f"also summed by the generic mode, and the last one's table 4 times over, 40 "
+          f"columns in two calls; "
           f"{len(counts)} patches, largest {int(counts.max())} rows, "
           f"{int((counts == 0).sum())} empty) bit for bit, max_abs_err {err}")
     return err
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time for ``nbytes`` moved and ``ops`` f32 operations on the
+    H100, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kr_timing(main_calls, crowd_calls) -> dict:
+    """KR on the card (CUDA events, cuda_ms): the generic mode on the first
+    moment sum of the main scan's unfused frame as a 10-column table
+    (kr_table; the shape timed before the moment mode, no longer a
+    main-path input of the generic mode) and on the crowded cloud's, and on the first LPR sum (2
+    columns, the generic mode's one shape on the main path); the moment mode
+    on the same moment sums' columns; each mode's plain version, and
+    index_add_ (one PyTorch call, atomics in no fixed order) on the table.
+    Bounds from these inputs: every input read once, the sums written once;
+    the generic mode one add a feature, the moment mode 9 multiplies and 10
+    adds a row."""
+    import torch
+
+    from patchworkpp_tpu_torch.ops import patch_reduce_kernel as kr
+    from patchworkpp_tpu_torch.ops.moments import masked_moment_features_cols
+    from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
+
+    main = next(c for c in main_calls if c[0] == "moments")
+    crowd = next(c for c in crowd_calls if c[0] == "moments")
+    feats, pid, start = kr_table(main)
+    c_feats, c_pid, c_start = kr_table(crowd)
+    l_feats, _, l_start = kr_table(next(c for c in main_calls if c[0] == "reduce"))
+    s, c = start.shape[0] - 1, feats.shape[1]
+    acc = torch.zeros((s, c), device=feats.device)
+    pid64, c_pid64 = pid.to(torch.int64), c_pid.to(torch.int64)
+    cols, c_cols = main[1][0], crowd[1][0]
+    p = cols[0].numel()
+    lpr = _bound(4 * (l_feats.numel() + l_start.numel() + s * l_feats.shape[1]), l_feats.numel())
+    return {"generic": {
+        "rows": feats.shape[0], "cols": c, "patches": s,
+        "ms": cuda_ms(lambda: kr.patch_reduce_kernel(feats, start), reps=50),
+        "plain_ms": cuda_ms(lambda: patch_reduce_reference(feats, pid, start), reps=3,
+                            warmup=1),
+        "library_ms": cuda_ms(lambda: acc.index_add_(0, pid64, feats), reps=50),
+        "crowded_ms": cuda_ms(lambda: kr.patch_reduce_kernel(c_feats, c_start), reps=50),
+        "crowded_plain_ms": cuda_ms(lambda: patch_reduce_reference(c_feats, c_pid, c_start),
+                                    reps=3, warmup=1),
+        "crowded_library_ms": cuda_ms(lambda: acc.index_add_(0, c_pid64, c_feats), reps=50),
+        "lpr_ms": cuda_ms(lambda: kr.patch_reduce_kernel(l_feats, l_start), reps=50),
+        "lpr_cols": l_feats.shape[1], "lpr_bytes": lpr["bytes"],
+        "lpr_bound_ms": lpr["bound_ms"], "lpr_bound_by": lpr["bound_by"],
+        **_bound(4 * (feats.numel() + start.numel() + s * c), feats.numel())},
+        "moments": {
+        "ms": cuda_ms(lambda: kr.patch_moment_sums_kernel(*cols, start), reps=50),
+        "plain_ms": cuda_ms(lambda: patch_reduce_reference(
+            masked_moment_features_cols(*cols), pid, start), reps=3, warmup=1),
+        "crowded_ms": cuda_ms(lambda: kr.patch_moment_sums_kernel(*c_cols, c_start), reps=50),
+        "crowded_plain_ms": cuda_ms(lambda: patch_reduce_reference(
+            masked_moment_features_cols(*c_cols), c_pid, c_start), reps=3, warmup=1),
+        **_bound(4 * (4 * p + start.numel() + s * c), 19 * p)}}
+
+
+def print_kr_timing(t, card) -> None:
+    g, m = t["generic"], t["moments"]
+    print(f"KR generic mode {g['ms']:.4f} ms a call ({g['rows']} rows x {g['cols']} columns, "
+          f"{g['patches']} patches), plain on the card {g['plain_ms']:.3f} ms, index_add_ "
+          f"{g['library_ms']:.4f} ms, bound {g['bound_ms']:.5f} ms ({g['bytes']} B), "
+          f"crowded-patch cloud {g['crowded_ms']:.4f} ms (plain {g['crowded_plain_ms']:.3f}, "
+          f"index_add_ {g['crowded_library_ms']:.4f}); an LPR sum ({g['lpr_cols']} columns, "
+          f"the generic mode's main-path shape) {g['lpr_ms']:.4f} ms, bound "
+          f"{g['lpr_bound_ms']:.5f} ms ({g['lpr_bytes']} B); {card}")
+    print(f"KR moment mode {m['ms']:.4f} ms a call (the same sum from qx, qy, qz, mask), "
+          f"plain on the card {m['plain_ms']:.3f} ms, bound {m['bound_ms']:.5f} ms "
+          f"({m['bytes']} B), crowded-patch cloud {m['crowded_ms']:.4f} ms (plain "
+          f"{m['crowded_plain_ms']:.3f}); {card}")
+
+
+KR_KERNELS = ("kr_chunk_sums", "kr_moment_sums", "kr_fold")
+
+
+def kr_launches(events) -> dict:
+    """KR's kernels in a profiler trace (utils/roofline.py:trace), by
+    name: each kernel's launches and device ms, and each mode's launches
+    (generic: kr_chunk_sums and the kr_fold after each; moment mode:
+    kr_moment_sums and its kr_fold). Raises unless every fold follows a
+    chunk launch of its call."""
+    mine = sorted((e for e in events if e.on_device and not e.annotation
+                   and any(n in e.name for n in KR_KERNELS)), key=lambda e: e.start_us)
+    out = {n: {"launches": 0, "ms": 0.0} for n in KR_KERNELS}
+    mode = {"generic": {"kr_chunk_sums": 0, "kr_fold": 0},
+            "moments": {"kr_moment_sums": 0, "kr_fold": 0}}
+    last = None
+    for e in mine:
+        n = next(n for n in KR_KERNELS if n in e.name)
+        out[n]["launches"] += 1
+        out[n]["ms"] += e.dur_us / 1e3
+        if n == "kr_fold":
+            if last is None:
+                raise AssertionError("KR trace: a kr_fold with no chunk launch before it")
+            mode[last][n] += 1
+            last = None
+        else:
+            if last is not None:
+                raise AssertionError(f"KR trace: {n} follows a chunk launch with no kr_fold")
+            last = "generic" if n == "kr_chunk_sums" else "moments"
+            mode[last][n] += 1
+    if last is not None:
+        raise AssertionError("KR trace: the last chunk launch has no kr_fold")
+    return {"by_kernel": out, "by_mode": mode}
 
 
 def sharded_fit_phase(p, cloud, label, device="cuda") -> dict:
@@ -1060,11 +1211,13 @@ def multi_device_phase(seed, device="cuda") -> dict:
     def zero_counts():
         fkg.fused_fit_grid.launches = fk.fused_fit.launches = 0
         sf.sharded_fit.launches = tf.tiled_fit.calls = kr.patch_reduce_kernel.launches = 0
+        kr.patch_moment_sums_kernel.launches = 0
 
     def counts():
         return {"fit_grid": fkg.fused_fit_grid.launches, "fit_onehot": fk.fused_fit.launches,
                 "fit_sharded": sf.sharded_fit.launches, "tiled_fit_calls": tf.tiled_fit.calls,
-                "patch_reduce": kr.patch_reduce_kernel.launches}
+                "patch_reduce": kr.patch_reduce_kernel.launches,
+                "patch_moments": kr.patch_moment_sums_kernel.launches}
 
     def run(model, chain):
         return [model.estimate_ground(s) for s in chain], model.state.to_numpy()
@@ -1109,8 +1262,11 @@ def multi_device_phase(seed, device="cuda") -> dict:
         return (res, model.state.to_numpy()), kept, cfs[0].pool_bytes, got
 
     def want(fit_sharded=0, patch_reduce=0, calls=0):
+        # a chunked frame's KR calls are all moment sums (its LPR sums are
+        # the comm's table merge), in KR's moment mode
         return {"fit_grid": 0, "fit_onehot": 0, "fit_sharded": fit_sharded,
-                "tiled_fit_calls": calls, "patch_reduce": patch_reduce}
+                "tiled_fit_calls": calls, "patch_reduce": patch_reduce,
+                "patch_moments": patch_reduce}
 
     # a. the facade, chunks=2 and 4, captured on the card: KS's cluster route
     # launches once a replay for all chunks, K1, K2 and KR none, the plain
@@ -1591,10 +1747,11 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
               f"readback; median of {n - 1}): {host['eager']:.3f} vs {host['captured']:.3f}; "
               f"{card}")
 
-    # the chunked (K = 2, 4) and unfused frames: eager against captured, the
-    # graph's node count and pool
+    # the chunked (K = 2, 4, and 16: KS's phase route) and unfused frames:
+    # eager against captured, the graph's node count and pool
     out["graph_nodes"] = {"tiled": out["tiled_frame_graph"]["graph_nodes"]}
     for label, kw, frames in (("chunks=2", {"chunks": 2}, n), ("chunks=4", {"chunks": 4}, n),
+                              ("chunks=16", {"chunks": PHASE_ROUTE_CHUNKS}, PHASE_ROUTE_FRAMES),
                               ("unfused", {"fused": False}, EAGER_UNFUSED_TIMED)):
         step = chunked_step(p, kw.get("chunks", 1), CZMGeometry.create(p), kw.get("fused"),
                             dev)
@@ -1617,6 +1774,38 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
               f"{timing[f'{label}_frame_ms']['captured']:.3f} ms; graph "
               f"{nodes if nodes is not None else why} nodes, pool "
               f"{cf.pool_bytes / 2**20:.2f} MB; {card}")
+        if label == "chunks=16":
+            # KS's phase route inside the captured frame: its kernels' device
+            # ms and count a replay, from a profiler trace of 3 replays
+            events, _ = trace(lambda cf=cf: [cf.run(x, len(c)) for x, c in
+                                             zip(xs[:3], chain[:3])])
+            kernels = [e for e in events if e.on_device and not e.annotation]
+            ks = [e for e in kernels if "fit_sharded_kernel" in e.name]
+            out["chunks16_replay"] = {"busy_ms": sum(e.dur_us for e in kernels) / 3e3,
+                                      "ks_ms": sum(e.dur_us for e in ks) / 3e3,
+                                      "ks_launches": len(ks) / 3}
+            print(f"captured chunks={PHASE_ROUTE_CHUNKS} frame, a replay (profiler trace of 3): "
+                  f"KS's phase route {out['chunks16_replay']['ks_ms']:.4f} ms of device time "
+                  f"in {out['chunks16_replay']['ks_launches']:g} launches, device busy "
+                  f"{out['chunks16_replay']['busy_ms']:.3f} ms; {card}")
+        if label == "unfused":
+            # the device busy ms and KR's kernels a replay, from a profiler
+            # trace of 5 replays
+            events, _ = trace(lambda cf=cf: [cf.run(x, len(c)) for x, c in
+                                             zip(xs[:5], chain[:5])])
+            kernels = [e for e in events if e.on_device and not e.annotation]
+            by = kr_launches(events)["by_kernel"]
+            out["unfused_replay"] = {
+                "busy_ms": sum(e.dur_us for e in kernels) / 5e3,
+                "kr_ms": sum(v["ms"] for v in by.values()) / 5,
+                "kr_by_kernel": {n: {"ms": v["ms"] / 5, "launches": v["launches"] / 5}
+                                 for n, v in by.items()}}
+            r = out["unfused_replay"]
+            each = ", ".join(f"{n} {v['ms']:.4f} ms in {v['launches']:g}"
+                             for n, v in r["kr_by_kernel"].items())
+            print(f"captured unfused frame, a replay (profiler trace of 5): device busy "
+                  f"{r['busy_ms']:.3f} ms, KR's kernels {r['kr_ms']:.4f} ms of device time "
+                  f"({each}); {card}")
 
     stack6, npts6 = bench.build_stack(scans[:6], 1, CAPACITY)
     stack = torch.from_numpy(np.tile(stack6, (4, 1, 1))).to(dev)
@@ -1838,34 +2027,57 @@ def main() -> int:
 
     # ---- 4. main paths on the card vs the CPU path
     counters = {"fit_grid": fkg.fused_fit_grid, "fit_onehot": fk.fused_fit,
-                "fit_sharded": sf.sharded_fit, "patch_reduce": kr.patch_reduce_kernel}
+                "fit_sharded": sf.sharded_fit, "patch_reduce": kr.patch_reduce_kernel,
+                "patch_moments": kr.patch_moment_sums_kernel}
 
     def drive(fused, frames, want):
         """``frames`` chained frames of engine ``fused`` on the card, a
         captured frame replayed each, and on the CPU; labels and state must
         agree. Every launch count is set to 0 just before the card's run and
         read just after; ``want`` maps the kernels of the engine to their
-        launches a frame (every other kernel must not have launched). The
-        unfused engine's replays must also equal its eager frames bit for
-        bit (every FrameResult field, and the state after each frame)."""
+        launches a frame (every other kernel must not have launched). In
+        the unfused engine's run KR's kernels count their own launches on
+        the card (patch_reduce_kernel.kernel_launches, zeroed with the
+        wrappers' counts: a chunk launch and a fold a call); its replays
+        must also equal its eager frames bit for bit (every FrameResult
+        field, and the state after each frame)."""
         gpu = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
         gpu.estimate_ground(scans[0])  # builds the kernel, captures the frame
         gpu.reset()
+        res, states, kept = [], {}, []
+
+        def run():
+            for i, s in enumerate(scans[:frames]):
+                res.append(gpu.estimate_ground(s))
+                if fused is False:
+                    kept.append((gpu.last_result, gpu.state))
+                if i == CHECKED_FRAME:
+                    states["card"] = gpu.state.to_numpy()
+
         for fn in counters.values():
             fn.launches = 0
-        res, states, kept = [], {}, []
-        for i, s in enumerate(scans[:frames]):
-            res.append(gpu.estimate_ground(s))
-            if fused is False:
-                kept.append((gpu.last_result, gpu.state))
-            if i == CHECKED_FRAME:
-                states["card"] = gpu.state.to_numpy()
+        kr.kernel_launches(reset=True)
+        run()
         counts = {k: fn.launches for k, fn in counters.items()}
+        on_card = kr.kernel_launches()
         for k, n in counts.items():
             expect = frames * want.get(k, 0)
             if n != expect:
                 raise AssertionError(f"fused={fused!r}: {k} launched {n} times "
                                      f"in {frames} frames, expected {expect}")
+        n_gen = counts["patch_reduce"] - counts["patch_moments"]
+        want_kr = dict(zip(kr.LAUNCH_COUNTERS, (n_gen, counts["patch_moments"], n_gen,
+                                                counts["patch_moments"])))
+        if on_card != want_kr:
+            raise AssertionError(f"fused={fused!r}: KR's kernels launched {on_card} times on "
+                                 f"the card for {counts['patch_reduce']} calls "
+                                 f"({counts['patch_moments']} moment mode)")
+        if fused is False:
+            if min(on_card.values()) == 0:
+                raise AssertionError(f"fused=False: a KR kernel never launched: {on_card}")
+            counts["kr_on_card"] = on_card
+            print(f"fused=False: KR's kernels counted {on_card} launches on the card in the "
+                  f"{frames} frames, for {counts['patch_reduce']} wrapper calls")
         _all_captured(gpu, f"fused={fused!r}")
         if fused is False:
             eager = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
@@ -1907,17 +2119,23 @@ def main() -> int:
                                            err_msg=key)
         print(f"fused={fused!r}: {frames} frames, labels equal to the cpu path, "
               f"ground {[int(r.ground_mask.sum()) for r in res[:3]]}..., "
-              f"sensor_height {gpu.sensor_height:.6f}, launches {counts}; state card vs "
+              f"sensor_height {gpu.sensor_height:.6f}, wrapper counts "
+              f"{ {k: v for k, v in counts.items() if k != 'kr_on_card'} }; state card vs "
               f"cpu max |err| {state_err} (0 required for {list(exact)})")
         return res, counts
 
     gpu_res, counts_k1 = drive(None, args.frames, {"fit_grid": 1})
     onehot_res, counts_k2 = drive("onehot", args.frames, {"fit_onehot": 1})
     launches, launches_k2 = counts_k1["fit_grid"], counts_k2["fit_onehot"]
-    # KR once a patch_reduce call, the calls of one unfused frame (11 at
-    # default Params: 4 LPR sums, 7 moment sums)
-    unfused_res, counts_kr = drive(False, args.frames, {"patch_reduce": len(kr_main)})
-    launches_kr = counts_kr["patch_reduce"]
+    # KR once a call in either mode, the calls of one unfused frame (11 at
+    # default Params: 4 LPR sums, 7 moment sums in the moment mode); its
+    # launches from the run's trace
+    n_mom = sum(mode == "moments" for mode, _ in kr_main)
+    unfused_res, counts_kr = drive(False, args.frames, {"patch_reduce": len(kr_main),
+                                                         "patch_moments": n_mom})
+    calls_kr = counts_kr["patch_reduce"] - counts_kr["patch_moments"]
+    calls_mom = counts_kr["patch_moments"]
+    on_card = counts_kr["kr_on_card"]
     engines = {"tiled": gpu_res, "onehot": onehot_res, "unfused": unfused_res}
     names = list(engines)
     for a in range(len(names)):
@@ -1988,23 +2206,7 @@ def main() -> int:
     plain_stage_ms = sharded_stage_ms(p, scans[0], lambda fi, comm: tiled_fit(
         fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
         fi.consts[0], p, comm=comm), reps=3)
-    # KR on the main scan's first moment sum (10 columns) and the crowded
-    # cloud's; its plain version; index_add_ (one PyTorch call, atomics in no
-    # fixed order) on the same inputs
-    kr_feats, kr_pid, kr_start = next(c for c in kr_main if c[0].shape[1] == 10)
-    kr_ms = cuda_ms(lambda: kr.patch_reduce_kernel(kr_feats, kr_start), reps=50)
-    kr_plain_ms = cuda_ms(lambda: patch_reduce_reference(kr_feats, kr_pid, kr_start), reps=3,
-                          warmup=1)
-    kr_acc = torch.zeros((kr_start.shape[0] - 1, kr_feats.shape[1]), device=dev)
-    kr_pid64 = kr_pid.to(torch.int64)
-    kr_library_ms = cuda_ms(lambda: kr_acc.index_add_(0, kr_pid64, kr_feats), reps=50)
-    kc_feats, _, kc_start = next(c for c in kr_crowd if c[0].shape[1] == 10)
-    kr_crowd_ms = cuda_ms(lambda: kr.patch_reduce_kernel(kc_feats, kc_start), reps=20)
-    # its bound: every feature and start read once, the sums written once;
-    # one add a feature
-    kr_bytes = 4 * (kr_feats.numel() + kr_start.numel() + kr_acc.numel())
-    kr_t_bytes, kr_t_ops = kr_bytes / H100_BYTES_PER_S, kr_feats.numel() / H100_F32_FLOPS
-    kr_bound_ms = max(kr_t_bytes, kr_t_ops) * 1e3
+    kr_t = kr_timing(kr_main, kr_crowd)
     xs_dev = []
     for s in scans:
         x = torch.zeros((CAPACITY, 4), device=dev)
@@ -2103,11 +2305,7 @@ def main() -> int:
           f"{graphs['timing']['chunks=2_frame_ms']['captured']:.3f} ms captured, "
           f"{graphs['timing']['chunks=2_frame_ms']['eager']:.3f} ms eager, 2-rank frame "
           f"median {multi['two_rank_frame_ms']:.3f} ms; {card}")
-    print(f"KR {kr_ms:.4f} ms a call ({kr_feats.shape[0]} rows x {kr_feats.shape[1]} "
-          f"columns, {kr_start.shape[0] - 1} patches), plain on the card {kr_plain_ms:.3f} ms, "
-          f"index_add_ {kr_library_ms:.4f} ms, bound {kr_bound_ms:.5f} ms ({kr_bytes} B), "
-          f"crowded-patch cloud {kr_crowd_ms:.4f} ms; {launches_kr} launches in "
-          f"{args.frames} unfused frames; {card}")
+    print_kr_timing(kr_t, card)
     kernels = {"kernels": [{
         "name": "fit_grid",
         "route": "cuda",
@@ -2165,18 +2363,45 @@ def main() -> int:
         "stage_ms": ks_phase_stage_ms,
         "plain_stage_ms": plain_stage_ms,
     }, {
+        # the generic mode: ms, bounds and index_add_ on the 10-column
+        # moment table; the main path gives it only the LPR sums (lpr_*)
         "name": "patch_reduce",
         "route": "cuda",
         "source": "patchworkpp_tpu_torch/csrc/patch_reduce.cu",
         "replaces": "patchworkpp_tpu/ops/onehot.py:281",
-        "launches": launches_kr,
+        "launches": on_card["kr_chunk_sums"] + on_card["kr_fold generic"],
         "max_abs_err": kr_err,
-        "ms": kr_ms,
-        "plain_ms": kr_plain_ms,
-        "bound_ms": kr_bound_ms,
-        "bound_by": "bytes" if kr_t_bytes >= kr_t_ops else "operations",
-        "library_ms": kr_library_ms,
-        "crowded_ms": kr_crowd_ms,
+        "ms": kr_t["generic"]["ms"],
+        "plain_ms": kr_t["generic"]["plain_ms"],
+        "bound_ms": kr_t["generic"]["bound_ms"],
+        "bound_by": kr_t["generic"]["bound_by"],
+        "library_ms": kr_t["generic"]["library_ms"],
+        "shape": f"{kr_t['generic']['cols']}-column moment table (not a main-path input "
+                 f"since the moment mode); main path: the {kr_t['generic']['lpr_cols']}-column "
+                 "LPR sums, lpr_ms",
+        "crowded_ms": kr_t["generic"]["crowded_ms"],
+        "lpr_ms": kr_t["generic"]["lpr_ms"],
+        "lpr_bound_ms": kr_t["generic"]["lpr_bound_ms"],
+        "lpr_bound_by": kr_t["generic"]["lpr_bound_by"],
+        "calls": calls_kr,
+        "launches_by_kernel": {"kr_chunk_sums": on_card["kr_chunk_sums"],
+                               "kr_fold": on_card["kr_fold generic"]},
+    }, {
+        "name": "patch_moment_sums",
+        "route": "cuda",
+        "source": "patchworkpp_tpu_torch/csrc/patch_reduce.cu",
+        "replaces": "patchworkpp_tpu/ops/onehot.py:281",
+        "launches": on_card["kr_moment_sums"] + on_card["kr_fold moments"],
+        "max_abs_err": kr_err,
+        "ms": kr_t["moments"]["ms"],
+        "plain_ms": kr_t["moments"]["plain_ms"],
+        "bound_ms": kr_t["moments"]["bound_ms"],
+        "bound_by": kr_t["moments"]["bound_by"],
+        "library_ms": None,
+        "crowded_ms": kr_t["moments"]["crowded_ms"],
+        "calls": calls_mom,
+        "launches_by_kernel": {"kr_moment_sums": on_card["kr_moment_sums"],
+                               "kr_fold": on_card["kr_fold moments"]},
     }]}
     record = {
         "card": card, "build_s": build_s, "frame_ms": frame_ms,

@@ -60,7 +60,10 @@ import torch
 
 from patchworkpp_tpu_torch.ops.fit_kernel import fused_fit
 from patchworkpp_tpu_torch.ops.fit_kernel_grid import fused_fit_grid
-from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
+from patchworkpp_tpu_torch.ops.patch_reduce_kernel import (
+    patch_moment_sums_kernel,
+    patch_reduce_kernel,
+)
 from patchworkpp_tpu_torch.ops.sharded_fit import sharded_fit
 from patchworkpp_tpu_torch.params import Params
 from patchworkpp_tpu_torch.pipeline import FrameResult
@@ -69,7 +72,7 @@ from patchworkpp_tpu_torch.state import AdaptiveState, init_state
 # Eager frames run before capture (torch.cuda.graphs' side-stream warm-up).
 WARMUP_FRAMES = 3
 # The kernel wrappers whose ``launches`` counters a replay advances.
-COUNTED = (fused_fit_grid, fused_fit, sharded_fit, patch_reduce_kernel)
+COUNTED = (fused_fit_grid, fused_fit, sharded_fit, patch_reduce_kernel, patch_moment_sums_kernel)
 
 
 def _refusal(frame) -> str | None:

@@ -9,7 +9,9 @@ same on the CPU and on the card (``index_add_``'s CUDA atomics have none):
 each patch's run is cut into 128-row chunks, each chunk is summed in
 ``ops.tree_sum``'s order, and a patch's chunk sums are added in order. On
 the card it is the kernel KR (``ops/patch_reduce_kernel.py``), on the CPU its
-plain version :func:`patch_reduce_reference`.
+plain version :func:`patch_reduce_reference`; :func:`patch_moment_sums`, the
+plane fit's moment sums, is KR's moment mode, which forms the monomials on
+the card instead of reading a (P, 10) table.
 """
 
 from __future__ import annotations
@@ -17,7 +19,11 @@ from __future__ import annotations
 import torch
 
 from patchworkpp_tpu_torch.ops import tree_sum
-from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
+from patchworkpp_tpu_torch.ops.moments import masked_moment_features_cols
+from patchworkpp_tpu_torch.ops.patch_reduce_kernel import (
+    patch_moment_sums_kernel,
+    patch_reduce_kernel,
+)
 
 # The padded patch space: 504 patches and the overflow bucket, padded to
 # 512 (the JAX package's ``ops/onehot.py:SPAD``; ``CZMGeometry.spad``).
@@ -48,6 +54,22 @@ def patch_reduce(feats: torch.Tensor, patch_id: torch.Tensor,
     if feats.device.type == "cpu":
         return patch_reduce_reference(feats, patch_id, start)
     return patch_reduce_kernel(feats, start)
+
+
+def patch_moment_sums(qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
+                      mask_f: torch.Tensor, patch_id: torch.Tensor,
+                      start: torch.Tensor) -> torch.Tensor:
+    """(S, 10) per-patch sums of the masked monomials
+    ``masked_moment_features_cols(qx, qy, qz, mask_f)`` of (P,) columns, as
+    :func:`patch_reduce` sums them. On a CUDA tensor this is one call of
+    KR's moment mode (``ops/patch_reduce_kernel.py:patch_moment_sums_kernel``,
+    the monomials formed in registers), or it raises; on a CPU tensor it is
+    exactly ``patch_reduce_reference(masked_moment_features_cols(...))``.
+    Both give the same bits."""
+    if qx.device.type == "cpu":
+        return patch_reduce_reference(masked_moment_features_cols(qx, qy, qz, mask_f),
+                                      patch_id, start)
+    return patch_moment_sums_kernel(qx, qy, qz, mask_f, start)
 
 
 def patch_reduce_reference(feats: torch.Tensor, patch_id: torch.Tensor,

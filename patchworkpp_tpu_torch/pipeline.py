@@ -40,13 +40,11 @@ from patchworkpp_tpu_torch.ops.fit_kernel import (
     fused_fit,
 )
 from patchworkpp_tpu_torch.ops.fit_kernel_grid import fused_fit_grid
-from patchworkpp_tpu_torch.ops.moments import (
-    masked_moment_features_cols,
-    moments_to_mean_cov,
-)
+from patchworkpp_tpu_torch.ops.moments import moments_to_mean_cov
 from patchworkpp_tpu_torch.ops.onehot import (
     patch_lookup,
     patch_lookup_cols,
+    patch_moment_sums,
     patch_reduce,
 )
 from patchworkpp_tpu_torch.ops.segments import (
@@ -241,10 +239,7 @@ def _fit_planes(
     (S,) which patches may update; a patch whose masked count is zero keeps
     its previous plane. Returns (new_carry, raw count)."""
     qx, qy, qz = q
-    mom = comm.reduce_patches(
-        patch_reduce(masked_moment_features_cols(qx, qy, qz, mask_f),
-                     sp.patch_id, sp.start)
-    )
+    mom = comm.reduce_patches(patch_moment_sums(qx, qy, qz, mask_f, sp.patch_id, sp.start))
     n, mean, cov = moments_to_mean_cov(mom, shift)
     svals, normal = eigh3x3_descending(cov)
     d = -fma(normal[:, 2], mean[:, 2], fma(normal[:, 0], mean[:, 0],

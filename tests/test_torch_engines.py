@@ -24,7 +24,8 @@
   is the host's) within the float64 sum's 1e-5 of tests/test_ops.py. The
   wrapper runs the plain version on a CPU tensor without counting, and KR
   raises on a tensor that is not on CUDA; on the card (``gpu``) KR equals
-  the plain version bit for bit.
+  the plain version bit for bit, in both modes (the moment mode's CPU tests
+  are tests/test_torch_patch_reduce.py).
 """
 
 from __future__ import annotations
@@ -287,20 +288,54 @@ def test_patch_reduce_argtypes_follow_extern_c_signature():
     assert list(kr.ARGTYPES) == _extern_c_argtypes(kr.SOURCE, "ppk_patch_reduce")
 
 
+def _kr_card_cases():
+    """_kr_cases and what the chunk-parallel kernel adds: one patch of 313
+    chunks (40,064 rows, the crowded cloud's largest), and the column counts
+    1, 2, 10, the widest the generic mode takes (32), and 70 (three calls
+    of 32, 32 and 6 columns)."""
+    cases = _kr_cases()
+    rng = np.random.default_rng(11)
+    cases["one_patch_313_chunks"] = _patch_runs(rng, [40064], 2)
+    counts = [0, 1, 5, 128, 129, 0, 700, 3, 0, 300]
+    for cols in (1, 2, 10, 32, 70):
+        cases[f"cols{cols}"] = _patch_runs(rng, counts, cols)
+    return cases
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["mixed", "signed_zeros", "cancelling"])
+@pytest.mark.parametrize("case", ["mixed", "signed_zeros", "cancelling", "one_patch_313_chunks",
+                                  "cols1", "cols2", "cols10", "cols32", "cols70", "moments"])
 def test_cuda_patch_reduce_matches_plain_on_card(case):
     """KR against its plain version on the same CUDA tensors: the same adds
-    in the same order, so bit for bit; one launch counted."""
+    in the same order, so bit for bit; one call counted (a call a 32-column
+    slice). ``moments``: the
+    moment mode against the plain version of the monomial table
+    (tests/test_torch_patch_reduce.py:_moment_cases)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py makes this check on the card)")
+    from patchworkpp_tpu_torch.ops.moments import masked_moment_features_cols
     from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
-    from patchworkpp_tpu_torch.ops.patch_reduce_kernel import patch_reduce_kernel
+    from patchworkpp_tpu_torch.ops.patch_reduce_kernel import (
+        patch_moment_sums_kernel,
+        patch_reduce_kernel,
+    )
 
-    feats, pid, start = (torch.from_numpy(a).cuda() for a in _kr_cases()[case])
     before = patch_reduce_kernel.launches
+    if case == "moments":
+        from test_torch_patch_reduce import _moment_cases
+
+        for cols, pid, start in _moment_cases().values():
+            cols = [torch.from_numpy(a).cuda() for a in cols]
+            pid, start = torch.from_numpy(pid).cuda(), torch.from_numpy(start).cuda()
+            got = patch_moment_sums_kernel(*cols, start)
+            torch.cuda.synchronize()
+            want = patch_reduce_reference(masked_moment_features_cols(*cols), pid, start)
+            np.testing.assert_array_equal(_bits(got.cpu()), _bits(want.cpu()))
+        assert patch_reduce_kernel.launches == before + len(_moment_cases())
+        return
+    feats, pid, start = (torch.from_numpy(a).cuda() for a in _kr_card_cases()[case])
     got = patch_reduce_kernel(feats, start)
     torch.cuda.synchronize()
-    assert patch_reduce_kernel.launches == before + 1
+    assert patch_reduce_kernel.launches == before + -(-feats.shape[1] // 32)
     want = patch_reduce_reference(feats, pid, start)
     np.testing.assert_array_equal(_bits(got.cpu()), _bits(want.cpu()))
