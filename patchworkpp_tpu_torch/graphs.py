@@ -35,6 +35,17 @@ count a launch at each Python call, so a capture would count once and a
 replay never: the capture's count is taken back and each replay adds the
 launches it holds.
 
+The host's time issuing a step is the span ``dispatch.launch``
+(``utils/profiling.py``: the copy-in, the ``npts`` write, the replays and
+the result copies), a capture's the span ``dispatch.capture`` (its eager
+warm-up frames and the capture; ``dispatch.captures`` counts the graphs).
+On the card each replay is bracketed by two timing events from a pool made
+at capture, recorded on the stream around ``graph.replay()``. Each timed
+replay first records, as ``frame.span`` records of their device time, the
+earlier replays whose end event has completed (a query, which does not
+block), so the timing adds no synchronisation and every caller is served
+alike; a replay's span is recorded at the next replay after it ended.
+
 Every engine on one card is captured: the fused ones (K1, K2), the
 unfused one (its per-patch sums the kernel KR, which reads nothing back to
 the host), and the chunked frame of ``parallel/chunked.py``, whose chunk
@@ -53,7 +64,9 @@ the eager chain.
 
 from __future__ import annotations
 
+import collections
 import threading
+import time
 from typing import Dict
 
 import torch
@@ -68,9 +81,13 @@ from patchworkpp_tpu_torch.ops.sharded_fit import sharded_fit
 from patchworkpp_tpu_torch.params import Params
 from patchworkpp_tpu_torch.pipeline import FrameResult
 from patchworkpp_tpu_torch.state import AdaptiveState, init_state
+from patchworkpp_tpu_torch.utils import profiling
 
 # Eager frames run before capture (torch.cuda.graphs' side-stream warm-up).
 WARMUP_FRAMES = 3
+# Pairs of timing events a captured frame keeps for its replays' frame.span
+# (a 24-scan sequence holds up to 24 in flight).
+TIMING_PAIRS = 64
 # The kernel wrappers whose ``launches`` counters a replay advances.
 COUNTED = (fused_fit_grid, fused_fit, sharded_fit, patch_reduce_kernel, patch_moment_sums_kernel)
 
@@ -104,6 +121,12 @@ class CapturedFrame:
         self._per_replay = (0,) * len(COUNTED)
         self.pool_bytes = 0  # device memory the capture allocated, at its peak
         self.replays = 0
+        # frame.span: the free timing event pairs (made at capture, on the
+        # card) and the replays whose pair is not read yet: (start, end,
+        # start_ns, request, parent)
+        self._timed = False
+        self._free = []
+        self._pending = collections.deque()
 
     @property
     def is_captured(self) -> bool:
@@ -127,8 +150,18 @@ class CapturedFrame:
                 f"a CUDA graph captures CUDA tensors; this frame's buffers are on "
                 f"{self.device}, where it runs eagerly"
             )
+        with profiling.span("dispatch.capture"):
+            self._capture()
+        profiling.count("dispatch.captures")
+        return self
+
+    def _capture(self) -> None:
         dev = self.device
         with torch.cuda.device(dev):
+            self._free = [(torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+                          for _ in range(TIMING_PAIRS)]
+            self._timed = True
             start = self.state.clone()
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -153,7 +186,6 @@ class CapturedFrame:
         for f, b in zip(COUNTED, before):  # the capture launched nothing
             f.launches = b
         self._graph, self._out = graph, out
-        return self
 
     def run(self, points: torch.Tensor, npts) -> FrameResult:
         """One frame of ``points`` ((capacity, 4), on this frame's device)
@@ -168,27 +200,57 @@ class CapturedFrame:
             return self._step()
         # on the calling thread's current stream of the capture's device
         # (CUDAGraph.replay sets that device), after the two writes above
-        self._graph.replay()
+        if self._timed and profiling.enabled():
+            self._timed_replay()
+        else:
+            self._graph.replay()
         for f, n in zip(COUNTED, self._per_replay):
             f.launches += n
         self.replays += 1
         return self._out
 
+    def _timed_replay(self) -> None:
+        """One replay between a pair of timing events on the stream, after
+        the ``frame.span`` records of the replays that have ended."""
+        self._record_frame_spans()
+        if not self._free:  # the oldest replay is not done: its time is lost
+            self._free.append(self._pending.popleft()[:2])
+        start, end = self._free.pop()
+        request, parent = profiling.current()
+        stream = torch.cuda.current_stream(self.device)
+        start_ns = time.time_ns()
+        start.record(stream)
+        self._graph.replay()
+        end.record(stream)
+        self._pending.append((start, end, start_ns, request, parent))
+
+    def _record_frame_spans(self) -> None:
+        """Record a ``frame.span`` for each timed replay whose events have
+        completed, in order; its start is when the host launched the
+        replay, on the host clock."""
+        while self._pending and self._pending[0][1].query():
+            start, end, start_ns, request, parent = self._pending.popleft()
+            profiling.record("frame.span", start_ns, int(start.elapsed_time(end) * 1e6),
+                             request=request, parent=parent)
+            self._free.append((start, end))
+
     def __call__(self, points: torch.Tensor, npts) -> FrameResult:
         """One frame; the result is the caller's (a copy of the outputs)."""
-        return FrameResult(*(f.clone() for f in self.run(points, npts)))
+        with profiling.span("dispatch.launch"):
+            return FrameResult(*(f.clone() for f in self.run(points, npts)))
 
     def sequence(self, stack: torch.Tensor, npts) -> FrameResult:
         """The frames of a (B, capacity, 4) stack in order, the state
         carried; every FrameResult field stacked on a leading B axis."""
         out = None
-        for i in range(stack.shape[0]):
-            res = self.run(stack[i], npts[i])
-            if out is None:
-                out = FrameResult(*(f.new_empty((stack.shape[0],) + tuple(f.shape))
-                                    for f in res))
-            for o, f in zip(out, res):
-                o[i].copy_(f)
+        with profiling.span("dispatch.launch", scans=stack.shape[0]):
+            for i in range(stack.shape[0]):
+                res = self.run(stack[i], npts[i])
+                if out is None:
+                    out = FrameResult(*(f.new_empty((stack.shape[0],) + tuple(f.shape))
+                                        for f in res))
+                for o, f in zip(out, res):
+                    o[i].copy_(f)
         return out
 
 

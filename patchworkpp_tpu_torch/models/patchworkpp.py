@@ -11,12 +11,19 @@ eagerly. A scan is uploaded as the 8192-row bucket
 that holds its rows and zero-extended to the capacity on the device; each
 frame's result, or each run of frames', comes back to the host in one
 device -> host copy of one packed buffer.
+
+Each step records spans (``utils/profiling.py``): ``facade.step`` (whose
+duration is ``time_taken_s``) and inside it ``facade.stage`` (the NumPy
+stack), ``facade.upload`` (host -> device copy and zero-extension), the
+frame's ``dispatch.launch`` (``graphs.py``), ``facade.readback`` (the
+packed copy back, the host waiting for the device) and ``facade.unpack``
+(the host's unpacking and index building); on the card each replay's
+device time is a ``frame.span``.
 """
 
 from __future__ import annotations
 
 import math
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -27,6 +34,7 @@ from patchworkpp_tpu_torch.graphs import CapturedFrame
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
 from patchworkpp_tpu_torch.pipeline import FrameResult, make_frame_fn
 from patchworkpp_tpu_torch.state import AdaptiveState, init_state
+from patchworkpp_tpu_torch.utils import profiling
 
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -39,7 +47,7 @@ class SegmentationResult(NamedTuple):
     nonground_indices: np.ndarray  # (N-G,) int32, ascending
     centers: np.ndarray            # (K, 3) per-processed-patch plane centroids
     normals: np.ndarray            # (K, 3) per-processed-patch plane normals
-    time_taken_s: float            # host wall time of the frame step
+    time_taken_s: float            # host wall time of the frame step (facade.step)
 
 
 def _round_capacity(n: int, quantum: int = 8192) -> int:
@@ -104,7 +112,9 @@ def _zero_extend(a: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.cat([a, pad], dim=-2)
 
 
-def _result(mask, means, normals, proc, n, dt) -> SegmentationResult:
+def _result(mask, means, normals, proc, n) -> SegmentationResult:
+    """The result of one frame; ``time_taken_s`` is set once the step that
+    built it has ended."""
     mask = mask[:n]
     return SegmentationResult(
         ground_mask=mask,
@@ -112,7 +122,7 @@ def _result(mask, means, normals, proc, n, dt) -> SegmentationResult:
         nonground_indices=np.flatnonzero(~mask).astype(np.int32),
         centers=means[proc],
         normals=normals[proc],
-        time_taken_s=dt,
+        time_taken_s=0.0,
     )
 
 
@@ -243,15 +253,20 @@ class PatchworkPP:
         the longest, upload it and zero-extend it to ``cap`` on the device
         (padding rows are zeros either way: the same input, fewer bytes
         moved when the scans sit below the capacity)."""
-        rows = min(cap, _round_capacity(max(max(c.shape[0] for c in clouds), 1)))
-        stack = np.zeros((len(clouds), rows, 4), np.float32)
-        for i, c in enumerate(clouds):
-            stack[i, : c.shape[0], : c.shape[1]] = c
-        return _zero_extend(torch.from_numpy(stack).to(self.device), cap)
+        with profiling.span("facade.stage", scans=len(clouds), host_only=True):
+            rows = min(cap, _round_capacity(max(max(c.shape[0] for c in clouds), 1)))
+            stack = np.zeros((len(clouds), rows, 4), np.float32)
+            for i, c in enumerate(clouds):
+                stack[i, : c.shape[0], : c.shape[1]] = c
+        with profiling.span("facade.upload", scans=len(clouds)):
+            return _zero_extend(torch.from_numpy(stack).to(self.device), cap)
 
-    def _readback(self, res: FrameResult):
-        """The one device -> host copy of a frame's or a run's results."""
-        return _unpack_result(_pack_result(res).cpu().numpy(), res)
+    def _readback(self, res: FrameResult) -> np.ndarray:
+        """The one device -> host copy of a frame's or a run's results, as
+        the packed host buffer that :func:`_unpack_result` reads."""
+        mask = res.ground_mask
+        with profiling.span("facade.readback", scans=mask.shape[0] if mask.dim() > 1 else 1):
+            return _pack_result(res).cpu().numpy()
 
     def estimate_ground(self, cloud: np.ndarray) -> SegmentationResult:
         """Segment one scan. ``cloud`` is (N, 3) or (N, 4) float32."""
@@ -263,18 +278,21 @@ class PatchworkPP:
         n = cloud.shape[0]
         cap = self._capacity(n)
         cf = self._frame(self._rnr(cloud), cap, captured)
-        t0 = time.perf_counter()
-        x = self._upload([cloud], cap)[0]
-        res = cf(x, n)
-        mask, num_ground, means, normals, proc = self._readback(res)
-        dt = time.perf_counter() - t0
-        self.last_result = res
+        step = profiling.span("facade.step", timed=True)
+        with step:
+            x = self._upload([cloud], cap)[0]
+            res = cf(x, n)
+            buf = self._readback(res)
+            self.last_result = res
+            with profiling.span("facade.unpack", host_only=True):
+                mask, num_ground, means, normals, proc = _unpack_result(buf, res)
+                out = _result(mask, means, normals, proc, n)
         if self.params.verbose:
             print(
                 f"patchworkpp_tpu_torch: {n} pts -> {int(num_ground)} ground "
-                f"in {dt * 1e3:.2f} ms (sensor_height={self.sensor_height:.4f})"
+                f"in {step.seconds * 1e3:.2f} ms (sensor_height={self.sensor_height:.4f})"
             )
-        return _result(mask, means, normals, proc, n, dt)
+        return out._replace(time_taken_s=step.seconds)
 
     def estimate_ground_sequence(self, clouds) -> list:
         """Segment an ordered batch of scans, the state threaded through
@@ -304,16 +322,18 @@ class PatchworkPP:
     def _run_sequence(self, clouds, cap: int) -> list:
         cf = self._frame(self._rnr(clouds[0]), cap)
         npts = [c.shape[0] for c in clouds]
-        t0 = time.perf_counter()
-        x = self._upload(clouds, cap)
-        res = cf.sequence(x, npts)
-        masks, _, means, normals, procs = self._readback(res)
-        dt = time.perf_counter() - t0
-        self.last_result = FrameResult(*(f[-1] for f in res))
-        return [
-            _result(masks[i], means[i], normals[i], procs[i], n, dt if i == 0 else 0.0)
-            for i, n in enumerate(npts)
-        ]
+        step = profiling.span("facade.step", scans=len(clouds), timed=True)
+        with step:
+            x = self._upload(clouds, cap)
+            res = cf.sequence(x, npts)
+            buf = self._readback(res)
+            self.last_result = FrameResult(*(f[-1] for f in res))
+            with profiling.span("facade.unpack", scans=len(clouds), host_only=True):
+                masks, _, means, normals, procs = _unpack_result(buf, res)
+                out = [_result(masks[i], means[i], normals[i], procs[i], n)
+                       for i, n in enumerate(npts)]
+        out[0] = out[0]._replace(time_taken_s=step.seconds)
+        return out
 
     # ------------------------------------------------------------- profiling
 

@@ -4,7 +4,9 @@ Each kernel source is compiled by nvcc for sm_90a into a shared library
 with a plain C entry point, at the first call on a CUDA tensor, into
 ``build/`` beside the package (git-ignored), and loaded with ctypes. No
 PyTorch header is compiled, so a build takes seconds. Builds of different
-sources may run at the same time (one nvcc process each).
+sources may run at the same time (one nvcc process each). Each build or
+load is a ``kernels.build`` span of ``utils/profiling.py``, and each nvcc
+run advances its counter ``kernels.compiles``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from patchworkpp_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -56,8 +60,14 @@ def build(source: Path, symbol: str, argtypes) -> ctypes.CDLL:
 
     nvcc's output (the ``-Xptxas -v`` register and spill report) is kept
     beside the library as a ``.log`` (:func:`build_log`)."""
+    with profiling.span("kernels.build", host_only=True):
+        return _build(source, symbol, argtypes)
+
+
+def _build(source: Path, symbol: str, argtypes) -> ctypes.CDLL:
     so = _library(source)
     if not so.exists():
+        profiling.count("kernels.compiles")
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.run(

@@ -40,6 +40,13 @@ faults, VERDICT.md "What's weak" #1, #2 and #5):
   its wait in the queue included. The JAX server gives every message of a
   batch the batch's inference time.
 
+Each message is a request of the span recorder (``utils/profiling.py``),
+its id taken at ``publish()``: ``server.queue`` spans its wait from
+``publish()`` until the worker takes it, the facade's spans of its step
+follow under the same id, and ``server.answer`` spans the building of the
+answers and the callbacks. The worker's ``server.wait`` and
+``server.infer`` are :class:`FrameTimer`'s segments.
+
 A ROS 2 bridge, when rclpy is available, is a thin adapter over this class
 (see serve/ros2_bridge.py).
 """
@@ -51,14 +58,24 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from patchworkpp_tpu_torch.models import PatchworkPP, SegmentationResult
 from patchworkpp_tpu_torch.params import Params
+from patchworkpp_tpu_torch.utils import profiling
 from patchworkpp_tpu_torch.utils.profiling import FrameTimer
+
+
+class _Queued(NamedTuple):
+    """A published message waiting for the worker."""
+
+    msg: "CloudMsg"
+    request: int     # its request id in the span recorder
+    start_ns: int    # time_ns() at publish (server.queue's start)
+    t_ns: int        # perf_counter_ns() at publish (latency_s starts here)
 
 
 class CloudMsg(NamedTuple):
@@ -124,8 +141,8 @@ class GroundSegmentationServer:
         )
         self.device = self._model.device
         self._subs: List[Callable[[ResultMsg], None]] = []
-        # (publish time, message); None stops the worker
-        self._queue: "queue.Queue[Optional[Tuple[float, CloudMsg]]]" = queue.Queue(
+        # None stops the worker
+        self._queue: "queue.Queue[Optional[_Queued]]" = queue.Queue(
             maxsize=self.config.queue_depth
         )
         self._worker: Optional[threading.Thread] = None
@@ -148,7 +165,7 @@ class GroundSegmentationServer:
         """Enqueue a scan (the pointcloud_topic subscription)."""
         if not self._running:
             raise RuntimeError("server not started")
-        item = (time.perf_counter(), msg)
+        item = _Queued(msg, profiling.new_request(), time.time_ns(), time.perf_counter_ns())
         try:
             self._queue.put_nowait(item)
         except queue.Full:
@@ -210,6 +227,7 @@ class GroundSegmentationServer:
                 item = self._queue.get()
             if item is None or not self._running:
                 break
+            self._dequeued(item)
             batch = [item]
             # Backlog batching: drain up to batch_max pending scans and run
             # them as one sequence call, at the exact size batch_max only.
@@ -221,19 +239,29 @@ class GroundSegmentationServer:
                 if nxt is None:
                     stopped = True
                     break
+                self._dequeued(nxt)
                 batch.append(nxt)
-            with self.timer.segment("infer"):
-                answers = self._infer([m for _, m in batch])
-            self.frames_processed += len(batch)
-            for _ in batch:
-                self.timer.tick_frame()
-            for (t_pub, m), (r, err) in zip(batch, answers):
-                out = ResultMsg(msg=m, result=r, latency_s=time.perf_counter() - t_pub,
-                                error=err)
-                for cb in self._subs:
-                    cb(out)
+            # a batch's work is its first message's request
+            with profiling.request(batch[0].request):
+                with self.timer.segment("infer", scans=len(batch)):
+                    answers = self._infer([q.msg for q in batch])
+                self.frames_processed += len(batch)
+                for _ in batch:
+                    self.timer.tick_frame()
+                with profiling.span("server.answer", scans=len(batch), host_only=True):
+                    for q, (r, err) in zip(batch, answers):
+                        out = ResultMsg(msg=q.msg, result=r, error=err,
+                                        latency_s=(time.perf_counter_ns() - q.t_ns) * 1e-9)
+                        for cb in self._subs:
+                            cb(out)
             if not self._running:
                 break
+
+    @staticmethod
+    def _dequeued(q: "_Queued") -> None:
+        """The message's ``server.queue`` span: publish() to this dequeue."""
+        profiling.record("server.queue", q.start_ns, time.perf_counter_ns() - q.t_ns,
+                         request=q.request, parent=0)
 
     def _infer(self, msgs: List[CloudMsg]):
         """(result, error) for each message, in order. An exception is kept
@@ -267,8 +295,9 @@ class GroundSegmentationServer:
 
     def timing_report(self) -> str:
         """Per-frame wait/infer split of the serving loop (the reference's
-        verbose getTimeTaken analog; utils.profiling.FrameTimer)."""
-        return self.timer.report()
+        verbose getTimeTaken analog; utils.profiling.FrameTimer), then the
+        process's spans and counters (``utils.profiling.timing_report``)."""
+        return "\n".join(filter(None, [self.timer.report(), profiling.timing_report()]))
 
     # ------------------------------------------------------------ persistence
 

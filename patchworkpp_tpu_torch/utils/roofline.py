@@ -58,8 +58,7 @@ def events_from_profiler(prof) -> List[Event]:
 def trace(run_frames) -> Tuple[List[Event], float]:
     """Run ``run_frames()`` under ``torch.profiler`` (the card's activity
     too when CUDA is available, synchronized before and after). Returns
-    (events, wall seconds). ``utils.profiling.profile_trace`` writes a
-    Chrome trace instead."""
+    (events, wall seconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

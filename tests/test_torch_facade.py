@@ -13,9 +13,6 @@ package's byte for byte on the same arrays.
 
 from __future__ import annotations
 
-import json
-import os
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +25,8 @@ import patchworkpp_tpu_torch.models.patchworkpp as tfacade
 from patchworkpp_tpu_torch import Params, PatchworkPP
 from patchworkpp_tpu_torch.pipeline import FrameResult
 from patchworkpp_tpu_torch.utils import roofline
-from patchworkpp_tpu_torch.utils.profiling import FrameTimer, profile_trace
+from patchworkpp_tpu_torch.utils import profiling
+from patchworkpp_tpu_torch.utils.profiling import FrameTimer
 from test_fuzz_parity import CAP, synth_cloud
 from test_torch_frame import _assert_state_close, _one_torch_thread  # noqa: F401
 
@@ -224,15 +222,26 @@ def test_stage_breakdown_on_synthetic_events():
     assert text.splitlines()[0] == "h" and "stage_sort" in text and "total" in text
 
 
-def test_frame_timer_and_profile_trace(tmp_path):
+def test_frame_timer_and_profile_trace():
+    """FrameTimer's totals, and its segments as ``server.`` spans of the
+    recorder (``profiling.spans``), kept while the recorder is off."""
+    def count():
+        return profiling.counters().get("server.infer", profiling.Count(0, 0.0)).n
+
+    n0 = count()
     t = FrameTimer()
-    with t.segment("infer"):
+    with t.segment("infer", scans=2):
         torch.ones(4).sum()
     t.tick_frame()
     assert t.frames == 1 and t.time_taken_us > 0 and "infer" in t.report()
-    with profile_trace(None):
-        pass
-    with profile_trace(str(tmp_path)):
-        torch.ones(8).sum()
-    with open(os.path.join(tmp_path, "trace.json")) as f:
-        assert "traceEvents" in json.load(f)
+    rec = profiling.spans("server.infer")[-1]
+    assert count() == n0 + 1
+    assert rec.scans == 2 and rec.seconds == pytest.approx(t.totals["infer"])
+    assert "server.infer: n=" in profiling.timing_report()
+    profiling.enable(False)
+    try:
+        with t.segment("infer"):
+            torch.ones(4).sum()
+    finally:
+        profiling.enable(True)
+    assert t.totals["infer"] > rec.seconds and count() == n0 + 1
