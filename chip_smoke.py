@@ -63,7 +63,8 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    K1 bit for bit against its plain version on that preset's tiled inputs,
    and 3 chained facade frames on the card equal to the CPU path's; the
    facade's estimate_ground_sequence of 6 scans equal to the estimate_ground
-   loop (labels and state, bit for bit) with one device -> host copy, and a
+   loop (labels and state, bit for bit) with one device -> host copy a scan
+   (the pipelined readback into page-locked slots), and a
    quarter-density scan bucketed at capacity 131072 equal to capacity 32768;
    the streaming server (serve/server.py) in a closed loop over 20 chained
    scans, each answered within a timeout by a live worker, labels and state
@@ -736,7 +737,7 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
               f"{[int(r.ground_mask.sum()) for r in res]}")
 
     # b. the facade: one sequence call == the frame loop, one device->host
-    # copy for the run; the bucketed upload == a tight capacity
+    # copy a scan; the bucketed upload == a tight capacity
     seq_m = PatchworkPP(capacity=CAPACITY, device=device)
     loop_m = PatchworkPP(capacity=CAPACITY, device=device)
     seq_m.estimate_ground_sequence(chain[:1])  # captures the frame, outside the trace
@@ -747,15 +748,15 @@ def serving_phase(seed, scans, fit_inputs, check_k1, here, device="cuda",
     loop_res = [loop_m.estimate_ground(s) for s in chain[:6]]
     _equal_labels(seq_res, loop_res, "estimate_ground_sequence vs estimate_ground")
     _equal_states(seq_m.state, loop_m.state, "estimate_ground_sequence vs estimate_ground")
-    if dtoh != (device == "cuda"):  # one copy on the card (none on the CPU)
+    if dtoh != 6 * (device == "cuda"):  # one copy a scan on the card (none on the CPU)
         raise AssertionError(f"estimate_ground_sequence of 6 scans made {dtoh} "
-                             "device->host copies, expected 1")
+                             "device->host copies, expected 6")
     sparse = make_scan(seed)[::4]
     wide = PatchworkPP(capacity=CAPACITY, device=device).estimate_ground(sparse)
     tight = PatchworkPP(capacity=32768, device=device).estimate_ground(sparse)
     _equal_labels([wide], [tight], f"{len(sparse)} points at capacity {CAPACITY} vs 32768")
     print(f"facade: sequence of 6 == frame loop (labels, state), {dtoh} device->host "
-          f"copy; {len(sparse)}-point scan bucketed at {CAPACITY} == capacity 32768")
+          f"copies; {len(sparse)}-point scan bucketed at {CAPACITY} == capacity 32768")
 
     # c. the server, closed loop: one message in flight, each answered in time
     srv = GroundSegmentationServer(config=ServerConfig(capacity=CAPACITY), device=device)

@@ -245,13 +245,21 @@ class CapturedFrame:
         out = None
         with profiling.span("dispatch.launch", scans=stack.shape[0]):
             for i in range(stack.shape[0]):
-                res = self.run(stack[i], npts[i])
-                if out is None:
-                    out = FrameResult(*(f.new_empty((stack.shape[0],) + tuple(f.shape))
-                                        for f in res))
-                for o, f in zip(out, res):
-                    o[i].copy_(f)
+                out, _ = self.scan(out, stack.shape[0], i, stack[i], npts[i])
         return out
+
+    def scan(self, out, b: int, i: int, points: torch.Tensor, npts):
+        """Frame ``i`` of a ``b``-frame sequence (:meth:`sequence`'s step,
+        for a caller that interleaves other work with its frames): one
+        :meth:`run`, its outputs copied into entry ``i`` of the (b, ...)
+        stacks ``out`` (made here when None). Returns (``out``, the static
+        outputs, which the next run overwrites)."""
+        res = self.run(points, npts)
+        if out is None:
+            out = FrameResult(*(f.new_empty((b,) + tuple(f.shape)) for f in res))
+        for o, f in zip(out, res):
+            o[i].copy_(f)
+        return out, res
 
 
 class CompiledFrame:

@@ -7,18 +7,29 @@ the adaptive state stays there between frames, in static buffers that each
 frame updates in place. On the card the frame of every engine, chunked or
 not, is a captured CUDA graph, one per (RNR setting, capacity), as the JAX
 facade jits one (``graphs.py``); the CPU runs the same static-buffer step
-eagerly. A scan is uploaded as the 8192-row bucket
-that holds its rows and zero-extended to the capacity on the device; each
-frame's result, or each run of frames', comes back to the host in one
-device -> host copy of one packed buffer.
+eagerly. A single scan is uploaded as the 8192-row bucket that holds its
+rows and zero-extended to the capacity on the device, and its result comes
+back to the host in one device -> host copy of one packed buffer.
+
+A sequence runs as a pipeline, scan by scan, through buffers kept across
+calls (:class:`_Slots`; page-locked on the card, so that neither copy
+waits for the host): each scan is staged into its host slot, copied to its
+device slot, replayed, and its packed result copied back into its host
+readback slot behind an event, all without waiting; then the host waits on
+each scan's event in order and unpacks it. So while the card replays scan
+i, the host stages scan i+1, and the early scans are unpacked while the
+later ones run. On the CPU the same loop runs synchronously.
 
 Each step records spans (``utils/profiling.py``): ``facade.step`` (whose
-duration is ``time_taken_s``) and inside it ``facade.stage`` (the NumPy
-stack), ``facade.upload`` (host -> device copy and zero-extension), the
-frame's ``dispatch.launch`` (``graphs.py``), ``facade.readback`` (the
-packed copy back, the host waiting for the device) and ``facade.unpack``
-(the host's unpacking and index building); on the card each replay's
-device time is a ``frame.span``.
+duration is ``time_taken_s``) and inside it one each of ``facade.stage``
+(the host staging), ``facade.upload`` (host -> device copy, and for a
+single scan the zero-extension), the frame's ``dispatch.launch``,
+``facade.readback`` (the packing, the copy back and the host's wait for
+the device) and ``facade.unpack`` (the host's unpacking and index
+building); in a sequence each is its phase's time summed over the scans
+(``profiling.phase``). On the card each replay's device time is a
+``frame.span``, and ``facade.overlapped_scans`` counts the scans staged
+while the step's previous scan was still on the card.
 """
 
 from __future__ import annotations
@@ -58,18 +69,21 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(-1)
 
 
-def _pack_result(res: FrameResult) -> torch.Tensor:
+def _pack_result(res: FrameResult, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Everything SegmentationResult needs as ONE uint8 buffer on the
     device, in the JAX package's byte layout: the ground mask bit-packed 8
     labels a byte (little bit order, the flattened mask padded to a multiple
     of 8), ``num_ground`` as int32, the patch means and normals as f32
     bytes and the processed flags one byte each. Leading batch dimensions
-    (a sequence's results) are flattened into each field."""
+    (a sequence's results) are flattened into each field. ``weights``: the
+    bit weights already on the device (made here otherwise, by a host ->
+    device copy that waits for the stream)."""
     flat = res.ground_mask.reshape(-1)
     pad = (-flat.shape[0]) % 8
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=flat.device)
+    if weights is None:
+        weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=flat.device)
     packed = (flat.reshape(-1, 8).to(torch.int32) * weights).sum(dim=1)
     return torch.cat([
         packed.to(torch.uint8),
@@ -105,11 +119,91 @@ def _unpack_result(buf: np.ndarray, res: FrameResult):
 
 def _zero_extend(a: torch.Tensor, cap: int) -> torch.Tensor:
     """Zero-extend the row axis (axis -2) of ``a`` to ``cap`` on its device:
-    the bucketed upload of a frame ((rows, 4)) or a sequence ((B, rows, 4))."""
+    the bucketed upload of a frame ((1, rows, 4))."""
     if a.shape[-2] == cap:
         return a
     pad = a.new_zeros(a.shape[:-2] + (cap - a.shape[-2], a.shape[-1]))
     return torch.cat([a, pad], dim=-2)
+
+
+def _copy_rows(dst: torch.Tensor, src: torch.Tensor, rows: int, non_blocking: bool) -> None:
+    """Copy the leading ``rows`` rows of ``src`` into ``dst`` (a slot's
+    upload)."""
+    dst[:rows].copy_(src[:rows], non_blocking=non_blocking)
+
+
+class _Slots:
+    """The sequence path's buffers, kept by the facade across calls and
+    grown to the longest run and the largest capacity it meets: a (B,
+    rows, 4) float32 host staging buffer and a device buffer of the same
+    shape, a (B, L) uint8 host readback buffer for the packed results and,
+    on the card, one event a slot. On the card the host buffers are
+    page-locked, so that a copy neither waits for the stream to reach it
+    nor blocks the host.
+
+    ``rows[i]`` counts the leading rows of slot i that may be nonzero, on
+    both sides: staging a shorter scan zeroes the host rows the last one
+    left, and the upload copies as many rows as either scan held, so every
+    row of a slot past its scan's is zero on the device, as the frame's
+    padding must be. A slot is written once a call; a call starts once the
+    last one's copies have ended (its events waited, or the stream drained
+    where it failed)."""
+
+    def __init__(self, b: int, rows: int, device: torch.device) -> None:
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.host = torch.zeros((b, rows, 4), dtype=torch.float32, pin_memory=self.pinned)
+        self._host = self.host.numpy()
+        self.dev = torch.zeros((b, rows, 4), dtype=torch.float32, device=device)
+        self.rows = [0] * b
+        self.weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=device)
+        self.events = [torch.cuda.Event() for _ in range(b)] if self.pinned else None
+        self.back = None  # (b, L) uint8, made for the packed length at a call's first scan
+        self._back = None
+
+    def fits(self, b: int, rows: int) -> bool:
+        return b <= len(self.rows) and rows <= self.host.shape[1]
+
+    def busy(self, i: int) -> bool:
+        """Slot i's scan is still on the card (a query; never on the CPU)."""
+        return self.events is not None and not self.events[i].query()
+
+    def stage(self, i: int, cloud: np.ndarray) -> None:
+        h = self._host[i]
+        n, c = cloud.shape
+        h[:n, :c] = cloud
+        h[:n, c:] = 0
+        if self.rows[i] > n:
+            h[n:self.rows[i]] = 0
+
+    def upload(self, i: int, n: int, cap: int) -> torch.Tensor:
+        """Slot i's scan of ``n`` rows on the device, as the (cap, 4) points
+        of a frame."""
+        _copy_rows(self.dev[i], self.host[i], max(n, self.rows[i]), self.pinned)
+        self.rows[i] = n
+        return self.dev[i, :cap]
+
+    def read(self, i: int, packed: torch.Tensor) -> None:
+        """Queue the copy of slot i's packed result to the host, then its
+        event."""
+        if i == 0 and (self.back is None or self.back.shape[1] != packed.shape[0]):
+            self.back = torch.empty((len(self.rows), packed.shape[0]), dtype=torch.uint8,
+                                    pin_memory=self.pinned)
+            self._back = self.back.numpy()
+        self.back[i].copy_(packed, non_blocking=self.pinned)
+        if self.events is not None:
+            self.events[i].record(torch.cuda.current_stream(self.device))
+
+    def wait(self, i: int) -> np.ndarray:
+        """Slot i's packed result on the host, once its copy has ended."""
+        if self.events is not None:
+            self.events[i].synchronize()
+        return self._back[i]
+
+    def drain(self) -> None:
+        """Wait for every copy queued (after a call that failed midway)."""
+        if self.pinned:
+            torch.cuda.current_stream(self.device).synchronize()
 
 
 def _result(mask, means, normals, proc, n) -> SegmentationResult:
@@ -167,6 +261,7 @@ class PatchworkPP:
         # eagerly
         self._capture = device.type == "cuda"
         self._state = init_state(self.params, device)
+        self._slots: Optional[_Slots] = None  # the sequence path's buffers
         self.last_result: Optional[FrameResult] = None
 
     # ------------------------------------------------------------------ state
@@ -262,8 +357,8 @@ class PatchworkPP:
             return _zero_extend(torch.from_numpy(stack).to(self.device), cap)
 
     def _readback(self, res: FrameResult) -> np.ndarray:
-        """The one device -> host copy of a frame's or a run's results, as
-        the packed host buffer that :func:`_unpack_result` reads."""
+        """The one device -> host copy of a frame's results, as the packed
+        host buffer that :func:`_unpack_result` reads."""
         mask = res.ground_mask
         with profiling.span("facade.readback", scans=mask.shape[0] if mask.dim() > 1 else 1):
             return _pack_result(res).cpu().numpy()
@@ -302,9 +397,10 @@ class PatchworkPP:
         RNR gates per cloud as in :meth:`estimate_ground`, so a batch that
         mixes 3- and 4-column scans runs as consecutive uniform runs. Each
         run replays the frame of :meth:`estimate_ground` once a scan (on the
-        card one captured graph, whatever the run's length) and ends in one
-        packed readback; ``time_taken_s`` holds the run's wall time on its
-        first entry and 0.0 on the rest."""
+        card one captured graph, whatever the run's length) as a pipeline
+        (the module's docstring), each scan's result read back packed;
+        ``time_taken_s`` holds the run's wall time on its first entry and
+        0.0 on the rest."""
         clouds = [self._check_cloud(c) for c in clouds]
         if not clouds:
             return []
@@ -319,21 +415,52 @@ class PatchworkPP:
         out.extend(self._run_sequence(run, cap))
         return out
 
+    def _slots_for(self, b: int, cap: int) -> _Slots:
+        if self._slots is None or not self._slots.fits(b, cap):
+            old = self._slots
+            self._slots = _Slots(max(b, len(old.rows)) if old else b,
+                                 max(cap, old.host.shape[1]) if old else cap, self.device)
+        return self._slots
+
     def _run_sequence(self, clouds, cap: int) -> list:
         cf = self._frame(self._rnr(clouds[0]), cap)
+        b = len(clouds)
         npts = [c.shape[0] for c in clouds]
-        step = profiling.span("facade.step", scans=len(clouds), timed=True)
+        slots = self._slots_for(b, cap)
+        stage, upload, launch, readback, unpack = (
+            profiling.phase("facade.stage", host_only=True), profiling.phase("facade.upload"),
+            profiling.phase("dispatch.launch"), profiling.phase("facade.readback"),
+            profiling.phase("facade.unpack", host_only=True))
+        step = profiling.span("facade.step", scans=b, timed=True)
         with step:
-            x = self._upload(clouds, cap)
-            res = cf.sequence(x, npts)
-            buf = self._readback(res)
-            self.last_result = FrameResult(*(f[-1] for f in res))
-            with profiling.span("facade.unpack", scans=len(clouds), host_only=True):
-                masks, _, means, normals, procs = _unpack_result(buf, res)
-                out = [_result(masks[i], means[i], normals[i], procs[i], n)
-                       for i, n in enumerate(npts)]
-        out[0] = out[0]._replace(time_taken_s=step.seconds)
-        return out
+            out = None
+            try:
+                for i, (cloud, n) in enumerate(zip(clouds, npts)):
+                    with stage:
+                        if i and slots.busy(i - 1):
+                            profiling.count("facade.overlapped_scans")
+                        slots.stage(i, cloud)
+                    with upload:
+                        x = slots.upload(i, n, cap)
+                    with launch:
+                        out, res = cf.scan(out, b, i, x, n)
+                    with readback:
+                        slots.read(i, _pack_result(res, slots.weights))
+            except BaseException:
+                slots.drain()
+                raise
+            self.last_result = FrameResult(*(f[-1] for f in out))
+            results = []
+            for i, n in enumerate(npts):
+                with readback:
+                    buf = slots.wait(i)
+                with unpack:
+                    mask, _, means, normals, proc = _unpack_result(buf, res)
+                    results.append(_result(mask, means, normals, proc, n))
+            for phase in (stage, upload, launch, readback, unpack):
+                phase.done(b)
+        results[0] = results[0]._replace(time_taken_s=step.seconds)
+        return results
 
     # ------------------------------------------------------------- profiling
 

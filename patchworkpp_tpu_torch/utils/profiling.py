@@ -35,6 +35,11 @@ A span that encloses device work never opens one: the range would get a
 device-side span under its name, which a trace reader would take for a
 kernel.
 
+A step whose scans interleave their phases (the facade's sequence path:
+scan i+1 staged while scan i runs on the card) times each phase with
+:func:`phase`, entered once a scan, and records its sum as one span of the
+step.
+
 Read with :func:`spans` (the records of one name, oldest first),
 :func:`counters` (count and total seconds of every span name and event
 counter) and :func:`timing_report`.
@@ -163,8 +168,47 @@ class _Stopwatch:
         return self.dur_ns * 1e-9
 
 
+class _Phase:
+    """An open phase: the context manager :meth:`Recorder.phase` returns."""
+
+    __slots__ = ("_rec", "name", "host_only", "start_ns", "dur_ns", "profiled", "_t0",
+                 "_range")
+
+    def __init__(self, rec: "Recorder", name: str, host_only: bool) -> None:
+        self._rec = rec
+        self.name = name
+        self.host_only = host_only
+        self.start_ns = None
+        self.dur_ns = 0
+        self.profiled = False
+        self._range = None
+
+    def __enter__(self) -> "_Phase":
+        if _profiler_running():
+            self.profiled = True
+            if self.host_only and torch._C._autograd._profiler_enabled():
+                self._range = torch.autograd.profiler.record_function(self.name)
+                self._range.__enter__()
+        if self.start_ns is None:
+            self.start_ns = time.time_ns()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.dur_ns += time.perf_counter_ns() - self._t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+    def done(self, scans: int) -> None:
+        """Record the summed time as one span covering ``scans`` scans."""
+        if self.start_ns is not None:
+            self._rec.record(self.name, self.start_ns, self.dur_ns, scans=scans,
+                             profiled=self.profiled)
+
+
 class _Off:
-    """What an untimed span is while the recorder is off."""
+    """What an untimed span or a phase is while the recorder is off."""
 
     __slots__ = ()
     dur_ns = 0
@@ -174,6 +218,9 @@ class _Off:
         return self
 
     def __exit__(self, *exc) -> None:
+        return None
+
+    def done(self, scans: int) -> None:
         return None
 
 
@@ -224,11 +271,13 @@ class Recorder:
         return _Span(self, name, scans, host_only)
 
     def record(self, name: str, start_ns: int, dur_ns: int, request: Optional[int] = None,
-               parent: Optional[int] = None) -> None:
-        """Record a one-scan span measured elsewhere (a wait that began on
-        another thread, a device time read from CUDA events). ``request``
-        and ``parent`` default to :meth:`current`'s (a new request where
-        there is none)."""
+               parent: Optional[int] = None, scans: int = 1, profiled: bool = False) -> None:
+        """Record a span measured elsewhere (a wait that began on another
+        thread, a device time read from CUDA events, a phase's time summed
+        over a step's scans) covering ``scans`` scans. ``request`` and
+        ``parent`` default to :meth:`current`'s (a new request where there
+        is none); it is ``profiled`` if a profiler ran while it was measured
+        or runs now."""
         if not self.enabled:
             return
         cur_request, cur_parent = self.current()
@@ -236,8 +285,16 @@ class Recorder:
             request = cur_request or next(self._request_ids)
         if parent is None:
             parent = cur_parent
-        self._write(name, (int(start_ns), int(dur_ns), parent, next(self._span_ids), request, 1,
-                           _profiler_running()))
+        self._write(name, (int(start_ns), int(dur_ns), parent, next(self._span_ids), request,
+                           scans, profiled or _profiler_running()))
+
+    def phase(self, name: str, host_only: bool = False):
+        """A context manager entered once a scan, whose host time adds up
+        over a step's scans; its ``done(scans)`` records the sum as one span
+        of ``name`` (so a step holds one record of each phase, however its
+        scans interleave). ``host_only`` as in :meth:`span`: each entry
+        may open a profiler range."""
+        return _Phase(self, name, host_only) if self.enabled else _OFF
 
     def current(self):
         """(request, parent) for a span recorded later on this thread's
@@ -331,6 +388,7 @@ def enabled() -> bool:
 
 
 span = RECORDER.span
+phase = RECORDER.phase
 record = RECORDER.record
 current = RECORDER.current
 new_request = RECORDER.new_request

@@ -91,16 +91,22 @@ def test_packed_readback_equals_device_result():
 
 def test_bucketed_upload_equals_tight_capacity(monkeypatch):
     """A fixed capacity of 32768 uploads only the 8192-row bucket of a
-    ~3.7k-point scan and zero-extends it on the device: the frame and the
-    sequence equal a tight capacity's."""
-    seen = []
-    extend = tfacade._zero_extend
+    ~3.7k-point scan and zero-extends it on the device; the sequence
+    uploads each scan's own rows into its 32768-row device slot: the frame
+    and the sequence equal a tight capacity's."""
+    seen, rows = [], []
+    extend, copy_rows = tfacade._zero_extend, tfacade._copy_rows
 
     def spy(a, cap):
         seen.append((tuple(a.shape), cap))
         return extend(a, cap)
 
+    def spy_rows(dst, src, n, non_blocking):
+        rows.append((tuple(dst.shape), n))
+        return copy_rows(dst, src, n, non_blocking)
+
     monkeypatch.setattr(tfacade, "_zero_extend", spy)
+    monkeypatch.setattr(tfacade, "_copy_rows", spy_rows)
     clouds = _clouds(3, 2)
     wide = PatchworkPP(capacity=32768, device="cpu")
     tight = PatchworkPP(capacity=CAP, device="cpu")
@@ -112,7 +118,7 @@ def test_bucketed_upload_equals_tight_capacity(monkeypatch):
     for a, b in zip(wide.estimate_ground_sequence(clouds),
                     tight.estimate_ground_sequence(clouds)):
         _assert_results_equal(a, b, "bucketed sequence")
-    assert ((2, CAP, 4), 32768) in seen
+    assert rows[:2] == [((32768, 4), len(c)) for c in clouds]
     assert wide.sensor_height == tight.sensor_height
 
 
@@ -139,22 +145,109 @@ def test_sequence_equals_frame_loop_and_jax():
 
 def test_mixed_width_batch_runs_per_rnr_run(monkeypatch):
     """A 4, 4, 3, 4-column batch runs as three uniform-RNR runs, one
-    sequence call and one readback each, equal to the frame loop."""
+    pipelined step and one facade.readback span each, each scan packed and
+    read back on its own, equal to the frame loop."""
     clouds = _clouds(6, 4)
     clouds[2] = clouds[2][:, :3]
     m = PatchworkPP(capacity=CAP, device="cpu")
-    reads = []
-    readback = m._readback
-    monkeypatch.setattr(m, "_readback", lambda res: reads.append(
-        tuple(res.ground_mask.shape)) or readback(res))
+    packs = []
+    pack = tfacade._pack_result
+    monkeypatch.setattr(tfacade, "_pack_result", lambda res, weights=None: packs.append(
+        tuple(res.ground_mask.shape)) or pack(res, weights))
+    n0 = len(profiling.spans("facade.readback"))
     got = m.estimate_ground_sequence(clouds)
-    assert reads == [(2, CAP), (1, CAP), (1, CAP)]
+    assert packs == [(CAP,)] * 4
+    assert [r.scans for r in profiling.spans("facade.readback")[n0:]] == [2, 1, 1]
     assert [r.time_taken_s > 0 for r in got] == [True, False, True, True]
     loop = PatchworkPP(capacity=CAP, device="cpu")
     for i, c in enumerate(clouds):
         _assert_results_equal(got[i], loop.estimate_ground(c), f"mixed frame {i}")
     assert m.sensor_height == loop.sensor_height
     assert PatchworkPP(device="cpu").estimate_ground_sequence([]) == []
+
+
+def _padded(cloud, cap=CAP):
+    out = np.zeros((cap, 4), np.float32)
+    out[: len(cloud), : cloud.shape[1]] = cloud
+    return out
+
+
+def test_pipelined_slots_hold_no_stale_rows(monkeypatch):
+    """Three sequence calls on one facade reuse its slots with shorter
+    scans after longer ones, and a 3-column scan where a 4-column one was:
+    every frame's input is its scan zero-padded to the capacity, and the
+    results, the state and last_result equal estimate_ground's scan by
+    scan, bit for bit."""
+    base = _clouds(7, 6)
+    calls = [
+        [base[0], base[1][: len(base[1]) // 3], base[2]],
+        [base[3][: len(base[3]) // 4], base[4], base[5][: len(base[5]) // 2]],
+        [base[0][: len(base[0]) // 5, :3], base[2][:, :3], base[4][: len(base[4]) // 2]],
+    ]
+    inputs = []
+    run = tfacade.CapturedFrame.run
+
+    def spy(self, points, npts):
+        inputs.append(points.clone().numpy())
+        return run(self, points, npts)
+
+    monkeypatch.setattr(tfacade.CapturedFrame, "run", spy)
+    seq = PatchworkPP(capacity=CAP, device="cpu")
+    loop = PatchworkPP(capacity=CAP, device="cpu")
+    for k, call in enumerate(calls):
+        inputs.clear()
+        got = seq.estimate_ground_sequence(call)
+        assert len(inputs) == len(call)
+        for i, (x, c) in enumerate(zip(inputs, call)):
+            np.testing.assert_array_equal(x, _padded(c), err_msg=f"call {k} input {i}")
+        for i, c in enumerate(call):
+            _assert_results_equal(got[i], loop.estimate_ground(c), f"call {k} frame {i}")
+        for name, v in loop.state.to_numpy().items():
+            np.testing.assert_array_equal(seq.state.to_numpy()[name], v, err_msg=f"{k} {name}")
+        for f in FrameResult._fields:  # NaN eigenvalues of a thin patch compare equal
+            np.testing.assert_array_equal(getattr(seq.last_result, f).numpy(),
+                                          getattr(loop.last_result, f).numpy(), err_msg=f)
+
+
+def test_sequence_results_survive_the_next_call():
+    """The arrays a sequence call returns own their memory: a second call
+    on the same facade, through the same slots, leaves them unchanged."""
+    m = PatchworkPP(capacity=CAP, device="cpu")
+    first = m.estimate_ground_sequence(_clouds(8, 3))
+    kept = [{f: np.array(getattr(r, f), copy=True) for f in
+             ("ground_mask", "ground_indices", "nonground_indices", "centers", "normals")}
+            for r in first]
+    second = m.estimate_ground_sequence(_clouds(9, 3))
+    assert any(len(a.ground_mask) != len(b.ground_mask)
+               or (a.ground_mask != b.ground_mask).any() for a, b in zip(first, second))
+    for i, (r, k) in enumerate(zip(first, kept)):
+        for f, v in k.items():
+            np.testing.assert_array_equal(getattr(r, f), v, err_msg=f"scan {i} {f}")
+
+
+def test_pipelined_step_records_one_span_a_phase():
+    """A 3-scan step records one facade.stage, facade.upload,
+    dispatch.launch, facade.readback and facade.unpack, each with scans=3
+    under the step, which the benchmark's per-request reader sums; the
+    CPU counts no overlapped scan (it has no events to query)."""
+    from benchmark.metrics._spans import summed_ms
+
+    names = ("facade.stage", "facade.upload", "dispatch.launch", "facade.readback",
+             "facade.unpack")
+    m = PatchworkPP(capacity=CAP, device="cpu")
+    before = profiling.counters().get("facade.overlapped_scans", profiling.Count(0, 0.0)).n
+    m.estimate_ground_sequence(_clouds(10, 3))
+    step = profiling.spans("facade.step")[-1]
+    assert step.scans == 3
+    for name in names:
+        recs = [r for r in profiling.spans(name) if r.request == step.request]
+        assert [(r.scans, r.parent) for r in recs] == [(3, step.id)], name
+        assert 0 < recs[0].dur_ns <= step.dur_ns, name
+        assert step.start_ns <= recs[0].start_ns
+        assert summed_ms([name]) is not None, name
+    assert summed_ms(["facade.stage", "facade.upload"]) > 0
+    assert profiling.counters().get("facade.overlapped_scans",
+                                    profiling.Count(0, 0.0)).n == before
 
 
 def test_verbose_print_uses_packed_count(capsys):

@@ -96,6 +96,38 @@ def test_parents_requests_and_recorded_spans():
     assert "outer" in rec.timing_report() and "events: 3" in rec.timing_report()
 
 
+def test_a_phase_sums_its_entries_into_one_record():
+    """A phase entered once a scan records one span at done(): the sum of
+    its entries, covering the scans given, under the enclosing span and
+    its request, profiled if a profiler ran at any entry; off, nothing."""
+    rec = Recorder()
+    with rec.span("step", scans=3) as step:
+        ph = rec.phase("p", host_only=True)
+        for _ in range(3):
+            with ph:
+                time.sleep(0.001)
+            time.sleep(0.002)
+        ph.done(3)
+    (r,) = rec.spans("p")
+    assert (r.scans, r.parent, r.request, r.profiled) == (3, step.id, rec.spans("step")[0].request,
+                                                          False)
+    assert 3_000_000 <= r.dur_ns < step.dur_ns - 5_000_000
+    ph = rec.phase("q")
+    with ph:
+        pass
+    with _profile():
+        with ph:
+            pass
+    ph.done(2)
+    assert rec.spans("q")[0].profiled
+    rec.enabled = False
+    ph = rec.phase("off")
+    with ph:
+        pass
+    ph.done(1)
+    assert rec.spans("off") == []
+
+
 def test_threads_record_at_once():
     """More threads than cores, switching often: no record or count is
     lost, and each inner span's parent is the outer span of its thread."""
