@@ -12,7 +12,7 @@ a CUDA graph (``torch.cuda.graphs``) over static buffers and replayed:
 
 - static inputs: the (capacity, 4) points, ``npts`` as a 0-d int32 tensor
   (the frame clamps it on the device, ``pipeline.make_frame_fn``) and the
-  seven :class:`~patchworkpp_tpu_torch.state.AdaptiveState` tensors;
+  eight :class:`~patchworkpp_tpu_torch.state.AdaptiveState` tensors;
 - the graph ends by copying the new state into those state buffers, so the
   state carries itself from replay to replay with no launch from Python;
 - static outputs: the six FrameResult fields, overwritten by each replay.
@@ -131,6 +131,13 @@ class CapturedFrame:
     @property
     def is_captured(self) -> bool:
         return self._graph is not None
+
+    @property
+    def inherited_planes(self) -> torch.Tensor | None:
+        """The step's count of inherited planes (``pipeline.carry_planes``),
+        a 0-d int32 tensor that each run overwrites; None where the step
+        builds no carry."""
+        return getattr(self._frame, "inherited_planes", None)
 
     def _step(self) -> FrameResult:
         """The body a replay runs: one frame on the static buffers."""

@@ -29,7 +29,11 @@ the device) and ``facade.unpack`` (the host's unpacking and index
 building); in a sequence each is its phase's time summed over the scans
 (``profiling.phase``). On the card each replay's device time is a
 ``frame.span``, and ``facade.overlapped_scans`` counts the scans staged
-while the step's previous scan was still on the card.
+while the step's previous scan was still on the card. Where the frame
+carries planes across empty patches (``num_min_pts`` 0,
+``pipeline.carry_planes``), its count of inherited planes rides at the end
+of the packed readback, and the counter ``frame.inherited_planes`` sums it
+over the scans unpacked.
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(-1)
 
 
-def _pack_result(res: FrameResult, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _pack_result(res: FrameResult, weights: Optional[torch.Tensor] = None,
+                 inherited: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Everything SegmentationResult needs as ONE uint8 buffer on the
     device, in the JAX package's byte layout: the ground mask bit-packed 8
     labels a byte (little bit order, the flattened mask padded to a multiple
@@ -77,7 +82,9 @@ def _pack_result(res: FrameResult, weights: Optional[torch.Tensor] = None) -> to
     bytes and the processed flags one byte each. Leading batch dimensions
     (a sequence's results) are flattened into each field. ``weights``: the
     bit weights already on the device (made here otherwise, by a host ->
-    device copy that waits for the stream)."""
+    device copy that waits for the stream). ``inherited``: a frame's 0-d
+    int32 count of inherited planes, appended as 4 more bytes
+    (:func:`_unpack_inherited`)."""
     flat = res.ground_mask.reshape(-1)
     pad = (-flat.shape[0]) % 8
     if pad:
@@ -85,12 +92,14 @@ def _pack_result(res: FrameResult, weights: Optional[torch.Tensor] = None) -> to
     if weights is None:
         weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=flat.device)
     packed = (flat.reshape(-1, 8).to(torch.int32) * weights).sum(dim=1)
+    extra = [] if inherited is None else [_bytes(inherited.reshape(1))]
     return torch.cat([
         packed.to(torch.uint8),
         _bytes(res.num_ground.reshape(-1).to(torch.int32)),
         _bytes(res.patch_mean.to(torch.float32)),
         _bytes(res.patch_normal.to(torch.float32)),
         res.patch_processed.reshape(-1).to(torch.uint8),
+        *extra,
     ])
 
 
@@ -115,6 +124,11 @@ def _unpack_result(buf: np.ndarray, res: FrameResult):
     proc_shape = tuple(res.patch_processed.shape)
     proc = buf[off:off + int(np.prod(proc_shape))].astype(bool).reshape(proc_shape)
     return mask, num_ground, out[0], out[1], proc
+
+
+def _unpack_inherited(buf: np.ndarray) -> int:
+    """The count of inherited planes that :func:`_pack_result` appended."""
+    return int(buf[-4:].copy().view(np.int32)[0])
 
 
 def _zero_extend(a: torch.Tensor, cap: int) -> torch.Tensor:
@@ -356,12 +370,12 @@ class PatchworkPP:
         with profiling.span("facade.upload", scans=len(clouds)):
             return _zero_extend(torch.from_numpy(stack).to(self.device), cap)
 
-    def _readback(self, res: FrameResult) -> np.ndarray:
+    def _readback(self, res: FrameResult, inherited: Optional[torch.Tensor]) -> np.ndarray:
         """The one device -> host copy of a frame's results, as the packed
         host buffer that :func:`_unpack_result` reads."""
         mask = res.ground_mask
         with profiling.span("facade.readback", scans=mask.shape[0] if mask.dim() > 1 else 1):
-            return _pack_result(res).cpu().numpy()
+            return _pack_result(res, inherited=inherited).cpu().numpy()
 
     def estimate_ground(self, cloud: np.ndarray) -> SegmentationResult:
         """Segment one scan. ``cloud`` is (N, 3) or (N, 4) float32."""
@@ -377,11 +391,14 @@ class PatchworkPP:
         with step:
             x = self._upload([cloud], cap)[0]
             res = cf(x, n)
-            buf = self._readback(res)
+            inherited = cf.inherited_planes
+            buf = self._readback(res, inherited)
             self.last_result = res
             with profiling.span("facade.unpack", host_only=True):
                 mask, num_ground, means, normals, proc = _unpack_result(buf, res)
                 out = _result(mask, means, normals, proc, n)
+                if inherited is not None:
+                    profiling.count("frame.inherited_planes", _unpack_inherited(buf))
         if self.params.verbose:
             print(
                 f"patchworkpp_tpu_torch: {n} pts -> {int(num_ground)} ground "
@@ -424,6 +441,7 @@ class PatchworkPP:
 
     def _run_sequence(self, clouds, cap: int) -> list:
         cf = self._frame(self._rnr(clouds[0]), cap)
+        inherited = cf.inherited_planes
         b = len(clouds)
         npts = [c.shape[0] for c in clouds]
         slots = self._slots_for(b, cap)
@@ -445,7 +463,7 @@ class PatchworkPP:
                     with launch:
                         out, res = cf.scan(out, b, i, x, n)
                     with readback:
-                        slots.read(i, _pack_result(res, slots.weights))
+                        slots.read(i, _pack_result(res, slots.weights, inherited))
             except BaseException:
                 slots.drain()
                 raise
@@ -457,6 +475,8 @@ class PatchworkPP:
                 with unpack:
                     mask, _, means, normals, proc = _unpack_result(buf, res)
                     results.append(_result(mask, means, normals, proc, n))
+                    if inherited is not None:
+                        profiling.count("frame.inherited_planes", _unpack_inherited(buf))
             for phase in (stage, upload, launch, readback, unpack):
                 phase.done(b)
         results[0] = results[0]._replace(time_taken_s=step.seconds)

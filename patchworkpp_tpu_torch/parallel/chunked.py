@@ -215,8 +215,10 @@ def _chunk_frames(params, geom, device, fused, num_chunks, outer=None):
         return outs[0][0], outs[0][1]._replace(
             ground_mask=torch.cat([res.ground_mask for _, res in outs]))
 
-    # every chunk's frame is on the same kind of comm
+    # every chunk's frame is on the same kind of comm, and holds the same
+    # merged per-patch tables
     fn.eager_only = frames[0].eager_only
+    fn.inherited_planes = frames[0].inherited_planes
     return fn
 
 
@@ -266,6 +268,7 @@ def chunked_step(params: Params, num_chunks: int, geom: CZMGeometry, fused,
         return run(state, points, npts)
 
     fn.eager_only = run.eager_only
+    fn.inherited_planes = run.inherited_planes
     return fn
 
 

@@ -22,6 +22,7 @@ and on the card.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, NamedTuple, Tuple
 
@@ -33,8 +34,10 @@ from patchworkpp_tpu_torch.ops import div, f32, fma, plane_dist, row_sums, seq_s
 from patchworkpp_tpu_torch.ops.binning import bin_points, factored_patch_counts
 from patchworkpp_tpu_torch.ops.eigen3 import eigh3x3_descending
 from patchworkpp_tpu_torch.ops.fit_kernel import (
+    OUT_D,
     OUT_GCOUNT,
     OUT_MEAN,
+    OUT_N,
     OUT_NORMAL,
     check_onehot_limits,
     fused_fit,
@@ -57,7 +60,7 @@ from patchworkpp_tpu_torch.ops.sharded_fit import sharded_fit
 from patchworkpp_tpu_torch.ops.tiled import TILE, build_tiled
 from patchworkpp_tpu_torch.ops.tiled_fit import out_layout, tiled_fit
 from patchworkpp_tpu_torch.params import CZMGeometry, Params
-from patchworkpp_tpu_torch.state import BUF_CAP, AdaptiveState
+from patchworkpp_tpu_torch.state import BUF_CAP, PLANE_WIDTH, AdaptiveState
 
 _F32_MAX = float(np.finfo(np.float32).max)
 _COORD_SANE = f32(1e9)  # meters; LiDAR returns are < a few hundred
@@ -73,6 +76,9 @@ class FrameResult(NamedTuple):
 
     ground_mask: torch.Tensor      # (P,) bool; padding rows are False
     num_ground: torch.Tensor       # () int32
+    # the reference's plane members after each patch: an empty processed
+    # patch's are those it inherited (carry_planes), a 1-point fit's normal
+    # and eigenvalues NaN
     patch_mean: torch.Tensor       # (NP, 3) final per-patch plane centroid
     patch_normal: torch.Tensor     # (NP, 3) final per-patch plane normal
     patch_svals: torch.Tensor      # (NP, 3) eigenvalues, descending
@@ -445,7 +451,37 @@ def _update_state(
         elev_cnt=_set(state.elev_cnt, cnt_new_e),
         flat_buf=_set(state.flat_buf, buf_post_f),
         flat_cnt=_set(state.flat_cnt, cnt_new_f),
+        plane=state.plane,
     ), also_stats
+
+
+def carry_planes(plane: torch.Tensor, start: torch.Tensor, counts: torch.Tensor,
+                 sid: torch.Tensor, npz: int, inherited: torch.Tensor):
+    """The reference's plane members carried from patch to patch
+    (patchworkpp.cpp:49: ``estimate_plane`` returns early on an empty
+    input, so the members keep the last fit's plane, and A-GLE, TGR and
+    the ring samples of an empty processed patch read it), where every
+    patch of the CZM is processed (``num_min_pts`` < 1).
+
+    ``plane`` (S, PLANE_WIDTH) holds each patch's final plane, ``start``
+    (PLANE_WIDTH,) the plane the state carries in from the previous frame
+    (zeros in a fresh state, as in a fresh reference object), ``counts``
+    (S,) each patch's points, ``sid`` (S,) int64 the patch index and
+    ``npz`` the CZM's patches (the rest of the S are padding, which no
+    frame processes). A patch without points takes the plane of the
+    nearest preceding patch with points, in flat patch order (the
+    reference's zone, ring, sector loop), or ``start`` where none precedes
+    it; the state then carries the plane of the CZM's last patch. Returns
+    (the planes, that next plane), and writes the count of patches that
+    inherited into the 0-d int32 ``inherited``."""
+    has = counts > 0
+    # each patch's nearest patch with points at or before it (itself, if it
+    # has points: the patch index grows); -1 (none) picks the table's last
+    # row, the carried-in plane
+    last = torch.cummax(torch.where(has, sid, -1), dim=0).values
+    out = torch.cat([plane, start[None, :]], dim=0)[last]
+    torch.sum(~has[:npz], dim=0, dtype=torch.int32, out=inherited)
+    return out, out[npz - 1]
 
 
 FUSED_MODES = (False, "grid", "grid_iota", "onehot", "tiled")
@@ -491,7 +527,14 @@ def make_frame_fn(
 
     The step's ``eager_only`` is the comm's (:attr:`FrameComm.eager_only`):
     None where ``graphs.CapturedFrame`` may capture it as a CUDA graph, else
-    the reason it runs eagerly."""
+    the reason it runs eagerly.
+
+    Where ``num_min_pts`` < 1 a processed patch can be empty, and the tail
+    carries the planes across patches and frames as the reference's members
+    do (:func:`carry_planes`, the state's ``plane``); the step's
+    ``inherited_planes`` is then a 0-d int32 tensor on ``device`` that each
+    frame overwrites with its count of inherited planes, and None where the
+    carry is not built (a no-op there)."""
     p = params
     comm = comm or FrameComm()
     sharded = comm.is_sharded
@@ -538,6 +581,15 @@ def make_frame_fn(
     n_roi = p.num_rings_of_interest
     w = tables.max_ring_patches
     sentinel_plane = torch.tensor([0.0, 0.0, 0.0, f32(1e30)], device=dev)
+    # a column reads NaN where the fit's count equals its entry: a 1-point
+    # fit leaves all but the mean NaN (a count is never -1)
+    nan_n = torch.tensor([-1.0] * 3 + [1.0] * (PLANE_WIDTH - 3), device=dev)
+    nan = torch.full((), float("nan"), device=dev)
+    # the in-order plane carry across patches: only where a processed patch
+    # can be empty (num_min_pts < 1, where every patch is processed;
+    # elsewhere it would change nothing)
+    carries = p.num_min_pts < 1
+    inherited_planes = torch.zeros((), dtype=torch.int32, device=dev) if carries else None
 
     def _rings(vals: torch.Tensor) -> torch.Tensor:
         """(S,) per-patch values -> (n_roi, w) zero-padded ring rows."""
@@ -546,11 +598,28 @@ def make_frame_fn(
             out[ci, : b - a] = vals[a:b]
         return out
 
+    def _planes(state, normal, mean, svals, d, fit_n, counts):
+        """Each patch's final plane as the reference's members hold it after
+        the patch, (S, PLANE_WIDTH): [mean, normal, eigenvalues, d]. A fit of
+        one point has the reference's NaN covariance (0/0), so its normal,
+        eigenvalues and d read NaN (the fit tables hold the sentinel plane,
+        which the label replay keeps: the decisions are the same). Also the
+        state's plane for the next frame: where the frame builds the carry,
+        that of :func:`carry_planes` (which writes the frame's count of
+        inherited planes into ``inherited_planes``), else the state's own."""
+        plane = torch.cat([mean, normal, svals, d[:, None]], dim=1)
+        plane = torch.where(fit_n[:, None] == nan_n, nan, plane)
+        if not carries:
+            return plane, state.plane
+        return carry_planes(plane, state.plane, counts, sid, npz, inherited_planes)
+
     def _finalize(
-        state, normal, mean, svals, g_count, processed, proc_f,
+        state, normal, mean, svals, d, fit_n, counts, g_count, processed, proc_f,
         final_plane_tab, vpf_tables, pid_o, x_o, y_o, z_o,
     ):
         """A-GLE cascade, TGR, state update, original-order labels."""
+        plane, next_plane = _planes(state, normal, mean, svals, d, fit_n, counts)
+        mean, normal, svals = plane[:, 0:3], plane[:, 3:6], plane[:, 6:9]
         zero = torch.zeros((), device=dev)
         one = torch.ones((), device=dev)
         uprightness = normal[:, 2]
@@ -665,6 +734,8 @@ def make_frame_fn(
             for s in range(0, pid_l.shape[0], blk)
         ])
 
+        if carries:
+            new_state = dataclasses.replace(new_state, plane=next_plane)
         result = FrameResult(
             ground_mask=ground,
             num_ground=comm.reduce_patches(torch.sum(ground).to(torch.int32)),
@@ -753,6 +824,8 @@ def make_frame_fn(
         """Fit table -> eigenvalues, snapshot tables, then _finalize."""
         normal = out[:, OUT_NORMAL:OUT_NORMAL + 3]
         mean = out[:, OUT_MEAN:OUT_MEAN + 3]
+        d = out[:, OUT_D]
+        fit_n = out[:, OUT_N]
         g_count = out[:, OUT_GCOUNT]
         # the final covariance's eigenvalues, which the fit kernels write
         # (the JAX package's tail computes them from the covariance columns)
@@ -769,7 +842,7 @@ def make_frame_fn(
         final_plane_tab = out[:, carry2_off:carry2_off + 4]
 
         return _finalize(
-            state, normal, mean, svals, g_count, fi.processed,
+            state, normal, mean, svals, d, fit_n, fi.counts, g_count, fi.processed,
             fi.processed.to(torch.float32), final_plane_tab, vpf_tables,
             fi.patch_id, fi.points[:, 0], fi.points[:, 1], fi.points[:, 2],
         )
@@ -842,18 +915,20 @@ def make_frame_fn(
 
         with record_function("stage_gle_tail"):
             return _finalize(
-                state, carry.normal, carry.mean, carry.svals, g_count, processed,
-                proc_f, final_plane_tab, vpf_tables, pid_o,
+                state, carry.normal, carry.mean, carry.svals, carry.d, carry.n, counts,
+                g_count, processed, proc_f, final_plane_tab, vpf_tables, pid_o,
                 points[:, 0], points[:, 1], points[:, 2],
             )
 
     if fused is False:
         frame.eager_only = comm.eager_only
+        frame.inherited_planes = inherited_planes
         return frame
     # the fit kernel's inputs for a cloud, as the frame builds them (for
     # holding the kernel against its plain version at the frame's shapes)
     frame_fused.fit_inputs = fit_inputs
     frame_fused.eager_only = comm.eager_only
+    frame_fused.inherited_planes = inherited_planes
     return frame_fused
 
 

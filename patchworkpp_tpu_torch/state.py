@@ -8,8 +8,14 @@ state and does not mutate its input (a captured frame, ``graphs.py``, then
 copies it into its static buffers). Buffers are left-aligned, oldest first,
 zero past each ring's count.
 
-The npz checkpoint uses the JAX package's keys, so a state file written by
-either package loads in the other.
+The reference's plane members (normal_, pc_mean_, singular_values_, d_)
+also live in its object from one scan to the next, and a scan whose first
+processed patches are empty (``num_min_pts`` 0) reads the previous scan's
+last plane there (``pipeline.carry_planes``): ``plane`` carries it.
+
+The npz checkpoint uses the JAX package's keys and ``plane``, which the JAX
+package does not read: a state file written by either package loads in the
+other, one without ``plane`` with the zero plane of a fresh state.
 """
 
 from __future__ import annotations
@@ -26,9 +32,12 @@ from patchworkpp_tpu_torch.params import Params
 BUF_CAP = 1064  # max_storage (1000) + the most samples a ring adds per frame
 NUM_ADAPT_RINGS = 4
 
+# the carried plane: [mean (3), normal (3), eigenvalues (3, descending), d]
+PLANE_WIDTH = 10
+
 _KEYS = (
     "sensor_height", "elevation_thr", "flatness_thr",
-    "elev_buf", "elev_cnt", "flat_buf", "flat_cnt",
+    "elev_buf", "elev_cnt", "flat_buf", "flat_cnt", "plane",
 )
 
 
@@ -43,6 +52,7 @@ class AdaptiveState:
     elev_cnt: torch.Tensor       # (4,) i32
     flat_buf: torch.Tensor       # (4, BUF_CAP) f32
     flat_cnt: torch.Tensor       # (4,) i32
+    plane: torch.Tensor          # (PLANE_WIDTH,) f32 the last processed patch's plane
 
     def clone(self) -> "AdaptiveState":
         """A copy whose tensors share no memory with this state's."""
@@ -71,7 +81,8 @@ class AdaptiveState:
 
 def from_numpy(d: Mapping[str, Any], device="cuda") -> AdaptiveState:
     """State from a dict of arrays or an open npz file (either package's),
-    on ``device`` (CUDA unless asked otherwise; raises without a card).
+    on ``device`` (CUDA unless asked otherwise; raises without a card). One
+    without ``plane`` (the JAX package's) carries the zero plane.
 
     Buffer tails past each ring's count are re-zeroed: the frame's FIFO
     append adds new samples at the write offset and relies on zeros there
@@ -97,6 +108,7 @@ def from_numpy(d: Mapping[str, Any], device="cuda") -> AdaptiveState:
         elev_cnt=_t(d["elev_cnt"], np.int32),
         flat_buf=_t(_clean(d["flat_buf"], d["flat_cnt"]), np.float32),
         flat_cnt=_t(d["flat_cnt"], np.int32),
+        plane=_t(d["plane"] if "plane" in d else np.zeros(PLANE_WIDTH), np.float32),
     )
 
 
@@ -114,4 +126,5 @@ def init_state(params: Params, device="cuda") -> AdaptiveState:
         elev_cnt=torch.zeros(NUM_ADAPT_RINGS, **i32),
         flat_buf=torch.zeros((NUM_ADAPT_RINGS, BUF_CAP), **f32),
         flat_cnt=torch.zeros(NUM_ADAPT_RINGS, **i32),
+        plane=torch.zeros(PLANE_WIDTH, **f32),
     )

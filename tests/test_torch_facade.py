@@ -152,8 +152,8 @@ def test_mixed_width_batch_runs_per_rnr_run(monkeypatch):
     m = PatchworkPP(capacity=CAP, device="cpu")
     packs = []
     pack = tfacade._pack_result
-    monkeypatch.setattr(tfacade, "_pack_result", lambda res, weights=None: packs.append(
-        tuple(res.ground_mask.shape)) or pack(res, weights))
+    monkeypatch.setattr(tfacade, "_pack_result", lambda res, *args, **kw: packs.append(
+        tuple(res.ground_mask.shape)) or pack(res, *args, **kw))
     n0 = len(profiling.spans("facade.readback"))
     got = m.estimate_ground_sequence(clouds)
     assert packs == [(CAP,)] * 4

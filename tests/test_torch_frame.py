@@ -79,7 +79,8 @@ def _chain(seed):
 
 def _assert_state_close(js, ts, label, atol=STATE_ATOL):
     jn, tn = js.to_numpy(), ts.to_numpy()
-    assert sorted(jn) == sorted(tn)
+    # the port's state also carries the last plane, which the JAX state lacks
+    assert sorted(tn) == sorted([*jn, "plane"])
     for k in jn:
         assert jn[k].dtype == tn[k].dtype, k
         if jn[k].dtype.kind == "i":

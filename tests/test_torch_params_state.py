@@ -1,6 +1,8 @@
 """Port config and state vs the JAX package: Params and CZMGeometry equal
 field for field, init_state equal, and an adaptive-state npz written by
-either package loads in the other (same keys, same values)."""
+either package loads in the other (same keys, same values; the port's state
+also carries the last plane, ``plane``, which a JAX file lacks and loads as
+the zero plane of a fresh state)."""
 
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def test_init_state_matches():
     ts = tstate.init_state(tparams.Params(**p), device="cpu").to_numpy()
     assert tstate.BUF_CAP == jstate.BUF_CAP
     assert tstate.NUM_ADAPT_RINGS == jstate.NUM_ADAPT_RINGS
-    assert list(js) == list(ts)
+    assert list(ts) == [*js, "plane"]
+    np.testing.assert_array_equal(ts["plane"], np.zeros(tstate.PLANE_WIDTH, np.float32))
     for k in js:
         assert js[k].dtype == ts[k].dtype, k
         np.testing.assert_array_equal(js[k], ts[k], err_msg=k)
@@ -81,6 +84,8 @@ def test_state_file_crosses_packages(tmp_path, direction):
     if direction == "jax_to_torch":
         jstate.AdaptiveState.from_numpy(d).save(path)
         back = tstate.AdaptiveState.load(path, device="cpu").to_numpy()
+        plane = back.pop("plane")
+        np.testing.assert_array_equal(plane, np.zeros(tstate.PLANE_WIDTH, np.float32))
     else:
         tstate.from_numpy(d, device="cpu").save(path)
         back = jstate.AdaptiveState.load(path).to_numpy()

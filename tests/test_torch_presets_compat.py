@@ -5,12 +5,19 @@ tests/test_fuzz_parity.py:synth_cloud at capacity 8192.
 Each preset runs a K1 pass program that the default parameters do not:
 ``patchwork_params`` has R-VPF and TGR off (no vertical-snapshot passes),
 ``ros_launch_params`` has num_min_pts=0 (patches with very few points are
-processed). Their tiled-engine labels must equal the JAX engine's, fresh
-and through adapted frames; state floats within test_torch_frame.py's
-tolerances. The compat getters' index sets must equal the JAX compat
-module's; the patch centers within 1e-5 m (means of the same points) and
-the normals within 2e-3 (a clustered pair's normal differs in its last bits,
-ROADMAP queue 3).
+processed). Their tiled-engine labels must equal the reference's, fresh and
+through adapted frames: ``patchwork_params``' the JAX engine's, state floats
+within test_torch_frame.py's tolerances; ``ros_launch_params``' the port's
+NumPy oracle's, with its buffer counts, state floats within 1e-5. At
+num_min_pts=0 an empty patch takes the previous patch's plane, as the C++
+reference's members do (pipeline.carry_planes), where the JAX engine gives
+it a zero plane; the clouds of that case are thinned of the patches that
+hold 2 to 19 points, where the fits of exactly two points lie whose normal
+is solver-arbitrary (``NumpyPatchworkpp.two_point_fits``, 0 on these three).
+The compat getters' index sets must equal the JAX
+compat module's; the patch centers within 1e-5 m (means of the same points)
+and the normals within 2e-3 (a clustered pair's normal differs in its last
+bits, ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ from patchworkpp_tpu.serve.launch import launch_node_parameters as j_launch_para
 from patchworkpp_tpu_torch import init_state
 from patchworkpp_tpu_torch.compat import pypatchworkpp
 from patchworkpp_tpu_torch.models import PatchworkPP, presets
+from patchworkpp_tpu_torch.oracle import NumpyPatchworkpp
 from patchworkpp_tpu_torch.pipeline import make_frame_fn
 from patchworkpp_tpu_torch.serve.launch import launch_node_parameters
 from test_fuzz_parity import CAP, synth_cloud
 from test_torch_frame import _assert_state_close, _one_torch_thread  # noqa: F401
+from test_torch_launch_profile import thin_indeterminate
 
 PRESETS = ("patchwork_params", "ros_launch_params")
 
@@ -70,28 +79,52 @@ def test_launch_node_parameters_match_jax():
     assert p["uprightness_thr"] == ros.uprightness_thr == 0.101
 
 
+def _assert_state_near_oracle(o: NumpyPatchworkpp, ts, label):
+    st = ts.to_numpy()
+    assert st["elev_cnt"].tolist() == [len(b) for b in o.update_elevation], label
+    assert st["flat_cnt"].tolist() == [len(b) for b in o.update_flatness], label
+    for k in ("sensor_height", "elevation_thr", "flatness_thr"):
+        np.testing.assert_allclose(st[k], getattr(o, k), rtol=0, atol=1e-5, err_msg=label)
+
+
 @pytest.mark.parametrize("name", PRESETS)
 def test_preset_labels_match_jax_tiled_engine(name):
     """Three chained clouds (fresh, then adapted) through each preset."""
     jp, tp = getattr(j_presets, name)(), getattr(presets, name)()
-    jfn = jax.jit(j_make_frame_fn(jp))
+    oracle = name == "ros_launch_params"
+    if oracle:
+        o = NumpyPatchworkpp(tp)
+    else:
+        jfn = jax.jit(j_make_frame_fn(jp))
+        js = jstate.init_state(jp)
     tfn = make_frame_fn(tp, device="cpu")
-    js, ts = jstate.init_state(jp), init_state(tp, device="cpu")
+    ts = init_state(tp, device="cpu")
     for k in range(3):
         cloud = synth_cloud(2 + 5 * k, exact_edges=False)
+        if oracle:
+            cloud = thin_indeterminate(cloud, tp, most=19)
         pts = _padded(cloud)
-        js, jr = jfn(js, jnp.asarray(pts), jnp.int32(len(cloud)))
         ts, tr = tfn(ts, torch.from_numpy(pts), len(cloud))
         label = f"{name} frame {k}"
-        np.testing.assert_array_equal(tr.ground_mask.numpy(), np.asarray(jr.ground_mask),
-                                      err_msg=label)
+        got = tr.ground_mask.numpy()
+        if oracle:
+            want = o.estimate_ground(cloud)
+            np.testing.assert_array_equal(got[:len(cloud)], want, err_msg=label)
+            assert not got[len(cloud):].any(), label
+            assert 0 < int(tr.num_ground) == int(want.sum())
+            _assert_state_near_oracle(o, ts, label)
+            continue
+        js, jr = jfn(js, jnp.asarray(pts), jnp.int32(len(cloud)))
+        np.testing.assert_array_equal(got, np.asarray(jr.ground_mask), err_msg=label)
         np.testing.assert_array_equal(tr.patch_processed.numpy(),
                                       np.asarray(jr.patch_processed), err_msg=label)
         assert 0 < int(tr.num_ground) == int(jr.num_ground)
         _assert_state_close(js, ts, label)
-    if name == "ros_launch_params":
+    if oracle:
         # num_min_pts=0: every real patch is processed, empty ones included
+        assert o.two_point_fits == 0
         assert bool(tr.patch_processed.all())
+        assert len(o.centers) == tr.patch_processed.shape[0]
 
 
 def test_compat_parameters_surface_matches_jax():

@@ -62,7 +62,8 @@ def _state_diff(js, ts) -> dict:
     """{field: indices whose bits differ} of two states (empty if equal);
     every field is 4-byte float32 or int32."""
     jn, tn = js.to_numpy(), ts.to_numpy()
-    assert sorted(jn) == sorted(tn)
+    # the port's state also carries the last plane, which the JAX state lacks
+    assert sorted(tn) == sorted([*jn, "plane"])
     out = {}
     for k in jn:
         a, b = np.atleast_1d(jn[k]), np.atleast_1d(tn[k])
