@@ -3,14 +3,15 @@
 
 Phases, in order; any failure raises and exits nonzero before the last line:
 
-1. print the card (nvidia-smi name, power limit) and build the four CUDA
+1. print the card (nvidia-smi name, power limit) and build the five CUDA
    kernels, K1 from patchworkpp_tpu_torch/csrc/fit_grid.cu, K2 from
    csrc/fit_onehot.cu (both the fit program of csrc/fit_program.cuh, with
    their own per-patch sums), KS, the sharded fit, from
    csrc/fit_sharded.cu (the same program for sharded points: a cluster of
    CTAs a patch across the chunks of one process, or launches cut at the
-   cross-shard points) and KR, the unfused engine's per-patch sum, from
-   csrc/patch_reduce.cu, with one nvcc each started together (build time,
+   cross-shard points), KR, the unfused engine's per-patch sum, from
+   csrc/patch_reduce.cu, and KL, every frame's label replay, from
+   csrc/label_replay.cu, with one nvcc each started together (build time,
    ptxas reports);
 2. make a synthetic KITTI-scale scan from --seed (io/synthetic.py: 64
    beams over 360 deg, a tilted noisy ground plane, walls, boxes, reflected
@@ -47,7 +48,9 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    captures the graph, then the state is reset), with every launch count
    set to 0 just before and read just after; the labels must equal the CPU path's on the same
    frames, each kernel's launch count must equal the frame count on its
-   path and be 0 on the other's, the final adaptive state must agree (the
+   path and be 0 on the other's (KL's, counted by the wrapper and on the
+   card, must equal the frame count on every engine), the final adaptive
+   state must agree (the
    default engine's thresholds, sensor height and elevation buffer bit for
    bit, and its whole state after frame 6 bit for bit); then
    the unfused engine (fused=False) over the same frames, captured too
@@ -142,7 +145,11 @@ Phases, in order; any failure raises and exits nonzero before the last line:
    mode on a recorded moment sum's 10-column table and on an LPR sum, the
    generic mode's one shape on the main path, its moment mode on the same
    moment sum's columns, both also on the crowded cloud, beside their
-   plain versions, index_add_ on the table and their byte bounds); print
+   plain versions, index_add_ on the table and their byte bounds; KL on the
+   replay inputs of a Params() and a ROS 2 launch-profile frame, equal to
+   its plain version on the card and on the CPU bit for bit, beside the
+   plain version's time, its byte bound and the captured frame's graph
+   node count of each profile); print
    K1's time
    per walk of the largest patch over its tiles (kernel ms / (tiles x
    walks)) and the kernels JSON line;
@@ -1227,7 +1234,8 @@ def multi_device_phase(seed, device="cuda") -> dict:
         (ra, sa), (rb, sb) = a, b
         for i, (x, y) in enumerate(zip(ra, rb)):
             for f in ("ground_mask", "centers", "normals"):
-                if not np.array_equal(getattr(x, f), getattr(y, f)):
+                # a one-point fit's normal is NaN on both sides
+                if not np.array_equal(getattr(x, f), getattr(y, f), equal_nan=True):
                     raise AssertionError(f"{label} frame {i}: {f} differ")
         for k in sa:
             if not np.array_equal(sa[k], sb[k]):
@@ -1514,6 +1522,66 @@ def moments_phase(p, cloud, card, device="cuda") -> dict:
     return out
 
 
+def label_replay_phase(seed, card, device="cuda") -> dict:
+    """Phase 5's KL: the frame tail's label replay at the main path's
+    shapes. For Params() and the ROS 2 launch profile, the replay's inputs
+    of an eager frame of make_scan(seed, 0) at capacity CAPACITY, recorded
+    on the card (pipeline.label_replay swapped for a recorder): KL's mask
+    and count equal the plain version's on the card and on the CPU, bit for
+    bit; KL's and the plain version's ms a call on the card (CUDA events);
+    KL's byte bound; and the graph node count of each profile's captured
+    facade frame (scripts/frame_graph_probe.py). Raises on a difference."""
+    import torch
+
+    import patchworkpp_tpu_torch.pipeline as tpipe
+    from patchworkpp_tpu_torch import Params, PatchworkPP, init_state
+    from patchworkpp_tpu_torch.io.synthetic import make_scan
+    from patchworkpp_tpu_torch.models.presets import ros_launch_params
+    from patchworkpp_tpu_torch.ops import label_replay_kernel as kl
+
+    scan = make_scan(seed, 0)
+    probe = _frame_graph_probe()
+    out = {}
+    for label, p in (("kitti", Params()), ("ros_launch", ros_launch_params())):
+        calls = []
+        saved = tpipe.label_replay
+        tpipe.label_replay = lambda *a: (calls.append(a), saved(*a))[1]
+        try:
+            x = torch.zeros((CAPACITY, 4), device=device)
+            x[: len(scan)] = torch.from_numpy(scan).to(device)
+            tpipe.make_frame_fn(p, device=device)(init_state(p, device), x, len(scan))
+        finally:
+            tpipe.label_replay = saved
+        args = calls[0]
+        got = kl.label_replay(*args)
+        torch.cuda.synchronize()
+        host = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        for where, want in (("cpu", kl.label_replay_reference(*host)),
+                            ("card", kl.label_replay_reference(*args))):
+            if not (torch.equal(got[0].cpu(), want[0].cpu()) and int(got[1]) == int(want[1])):
+                raise AssertionError(f"KL vs plain ({where}), {label}: "
+                                     f"{int((got[0].cpu() != want[0].cpu()).sum())} labels, "
+                                     f"count {int(got[1])} vs {int(want[1])}")
+        pts, _, tab = args[:3]
+        rows, (s, cols) = pts.shape[0], tab.shape
+        # the cloud (P, 4) f32 and patch ids read, the table read once, one
+        # byte a point and the int32 count written
+        b = _bound(rows * 16 + rows * 4 + s * cols * 4 + rows + 4, 0)
+        m = PatchworkPP(p, capacity=CAPACITY, device=device)
+        m.estimate_ground(scan)  # builds and captures
+        nodes, why = probe.graph_nodes(_all_captured(m, f"KL {label}")[0])
+        out[label] = {"ms": cuda_ms(lambda: kl.label_replay(*args), reps=200, warmup=20),
+                      "plain_ms": cuda_ms(lambda: kl.label_replay_reference(*args), reps=20),
+                      "ground": int(got[1]), "rows": rows, "table": [s, cols],
+                      "frame_graph_nodes": nodes if nodes is not None else why, **b}
+        o = out[label]
+        print(f"KL, {label}: == plain (card, cpu) bit for bit, {o['ground']} of {rows} ground, "
+              f"table {s} x {cols}; {o['ms']:.5f} ms a call, plain on the card "
+              f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms ({o['bytes']} B); "
+              f"captured frame {o['frame_graph_nodes']} graph nodes; {card}")
+    return out
+
+
 def graphs_phase(seed, scans, card, device="cuda") -> dict:
     """Phase 4e: the captured frames (graphs.py) on the card. Captured ==
     eager bit for bit over GRAPH_FRAMES chained frames (every FrameResult
@@ -1671,7 +1739,8 @@ def graphs_phase(seed, scans, card, device="cuda") -> dict:
         proc = res.patch_processed.cpu().numpy()
         if not (np.array_equal(r.ground_mask, mask)
                 and np.array_equal(r.centers, res.patch_mean.cpu().numpy()[proc])
-                and np.array_equal(r.normals, res.patch_normal.cpu().numpy()[proc])):
+                and np.array_equal(r.normals, res.patch_normal.cpu().numpy()[proc],
+                                   equal_nan=True)):
             raise AssertionError(f"server backlog frame {i}: differs from the eager chain")
     _same_frame((want[-1][0], srv._model._state), want[-1], "server backlog final state")
     frames = _all_captured(srv._model, "server backlog")
@@ -1910,6 +1979,7 @@ def main() -> int:
     )
     from patchworkpp_tpu_torch.ops import fit_kernel as fk
     from patchworkpp_tpu_torch.ops import fit_kernel_grid as fkg
+    from patchworkpp_tpu_torch.ops import label_replay_kernel as kl
     from patchworkpp_tpu_torch.ops import patch_reduce_kernel as kr
     from patchworkpp_tpu_torch.ops import sharded_fit as sf
     from patchworkpp_tpu_torch.ops.onehot import patch_reduce_reference
@@ -1928,12 +1998,12 @@ def main() -> int:
     # ---- 1. card and build (one nvcc per source, started together)
     print(f"card: {card}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        for fut in [pool.submit(m.build) for m in (fkg, fk, sf, kr)]:
+    with ThreadPoolExecutor(5) as pool:
+        for fut in [pool.submit(m.build) for m in (fkg, fk, sf, kr, kl)]:
             fut.result()
     build_s = time.perf_counter() - t0
-    print(f"kernels build (K1, K2, KS and KR in parallel): {build_s:.2f} s")
-    for module in (fkg, fk, sf, kr):
+    print(f"kernels build (K1, K2, KS, KR and KL in parallel): {build_s:.2f} s")
+    for module in (fkg, fk, sf, kr, kl):
         print(module.build_log().strip())
 
     # ---- 2. scan
@@ -2029,7 +2099,7 @@ def main() -> int:
     # ---- 4. main paths on the card vs the CPU path
     counters = {"fit_grid": fkg.fused_fit_grid, "fit_onehot": fk.fused_fit,
                 "fit_sharded": sf.sharded_fit, "patch_reduce": kr.patch_reduce_kernel,
-                "patch_moments": kr.patch_moment_sums_kernel}
+                "patch_moments": kr.patch_moment_sums_kernel, "label_replay": kl.label_replay}
 
     def drive(fused, frames, want):
         """``frames`` chained frames of engine ``fused`` on the card, a
@@ -2041,7 +2111,9 @@ def main() -> int:
         the card (patch_reduce_kernel.kernel_launches, zeroed with the
         wrappers' counts: a chunk launch and a fold a call); its replays
         must also equal its eager frames bit for bit (every FrameResult
-        field, and the state after each frame)."""
+        field, and the state after each frame). Every engine's replay
+        launches KL once, which counts itself on the card too."""
+        want = {**want, "label_replay": 1}
         gpu = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
         gpu.estimate_ground(scans[0])  # builds the kernel, captures the frame
         gpu.reset()
@@ -2058,9 +2130,13 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
         kr.kernel_launches(reset=True)
+        kl.kernel_launches(reset=True)
         run()
         counts = {k: fn.launches for k, fn in counters.items()}
         on_card = kr.kernel_launches()
+        if kl.kernel_launches() != frames:
+            raise AssertionError(f"fused={fused!r}: KL launched {kl.kernel_launches()} times on "
+                                 f"the card in {frames} frames")
         for k, n in counts.items():
             expect = frames * want.get(k, 0)
             if n != expect:
@@ -2208,6 +2284,7 @@ def main() -> int:
         fi.xs, fi.ys, fi.zs, fi.valid_f, fi.tile_patch, fi.pad_start, fi.gates,
         fi.consts[0], p, comm=comm), reps=3)
     kr_t = kr_timing(kr_main, kr_crowd)
+    kl_t = label_replay_phase(args.seed, card)
     xs_dev = []
     for s in scans:
         x = torch.zeros((CAPACITY, 4), device=dev)
@@ -2403,6 +2480,20 @@ def main() -> int:
         "calls": calls_mom,
         "launches_by_kernel": {"kr_moment_sums": on_card["kr_moment_sums"],
                                "kr_fold": on_card["kr_fold moments"]},
+    }, {
+        "name": "label_replay",
+        "route": "cuda",
+        "source": "patchworkpp_tpu_torch/csrc/label_replay.cu",
+        "replaces": None,
+        "launches": counts_k1["label_replay"],
+        "max_abs_err": 0.0,
+        "ms": kl_t["kitti"]["ms"],
+        "plain_ms": kl_t["kitti"]["plain_ms"],
+        "bound_ms": kl_t["kitti"]["bound_ms"],
+        "bound_by": kl_t["kitti"]["bound_by"],
+        "library_ms": None,
+        "ros_launch_ms": kl_t["ros_launch"]["ms"],
+        "frame_graph_nodes": {k: v["frame_graph_nodes"] for k, v in kl_t.items()},
     }]}
     record = {
         "card": card, "build_s": build_s, "frame_ms": frame_ms,

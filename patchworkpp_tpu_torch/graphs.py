@@ -52,7 +52,8 @@ the host), and the chunked frame of ``parallel/chunked.py``, whose chunk
 threads issue their work in turns on the capturing stream, so that the
 graph holds every chunk's kernels in that order (KS's cluster route for
 up to 8 chunks, its phase route beyond) and a replay runs them with no
-thread. What a frame step cannot be captured for it says in its
+thread. Every frame's label replay is one launch of the kernel KL
+(``ops/label_replay_kernel.py``). What a frame step cannot be captured for it says in its
 ``eager_only`` (``pipeline.FrameComm.eager_only``): a comm over a process
 group (gloo gathers through the host; an NCCL group spans cards), and the
 shard x chunk composition over one. The profiled frame (its per-stage
@@ -73,6 +74,7 @@ import torch
 
 from patchworkpp_tpu_torch.ops.fit_kernel import fused_fit
 from patchworkpp_tpu_torch.ops.fit_kernel_grid import fused_fit_grid
+from patchworkpp_tpu_torch.ops.label_replay_kernel import label_replay
 from patchworkpp_tpu_torch.ops.patch_reduce_kernel import (
     patch_moment_sums_kernel,
     patch_reduce_kernel,
@@ -89,7 +91,8 @@ WARMUP_FRAMES = 3
 # (a 24-scan sequence holds up to 24 in flight).
 TIMING_PAIRS = 64
 # The kernel wrappers whose ``launches`` counters a replay advances.
-COUNTED = (fused_fit_grid, fused_fit, sharded_fit, patch_reduce_kernel, patch_moment_sums_kernel)
+COUNTED = (fused_fit_grid, fused_fit, sharded_fit, patch_reduce_kernel, patch_moment_sums_kernel,
+           label_replay)
 
 
 def _refusal(frame) -> str | None:

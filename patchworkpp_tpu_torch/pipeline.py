@@ -43,6 +43,7 @@ from patchworkpp_tpu_torch.ops.fit_kernel import (
     fused_fit,
 )
 from patchworkpp_tpu_torch.ops.fit_kernel_grid import fused_fit_grid
+from patchworkpp_tpu_torch.ops.label_replay_kernel import label_replay
 from patchworkpp_tpu_torch.ops.moments import moments_to_mean_cov
 from patchworkpp_tpu_torch.ops.onehot import (
     patch_lookup,
@@ -65,9 +66,10 @@ from patchworkpp_tpu_torch.state import BUF_CAP, PLANE_WIDTH, AdaptiveState
 _F32_MAX = float(np.finfo(np.float32).max)
 _COORD_SANE = f32(1e9)  # meters; LiDAR returns are < a few hundred
 
-# Row-block size of the original-order label replay: bounds the (rows, C)
-# gathered label table the replay materializes. Module-level so tests can
-# shrink it to exercise the multi-block path on small clouds.
+# Row-block size of the original-order label replay's plain version
+# (ops/label_replay_kernel.py:label_replay_reference, the CPU path): bounds
+# the (rows, C) gathered label table it materializes. Module-level so tests
+# can shrink it to exercise the multi-block path on small clouds.
 _REPLAY_BLOCK = 65536
 
 
@@ -615,7 +617,7 @@ def make_frame_fn(
 
     def _finalize(
         state, normal, mean, svals, d, fit_n, counts, g_count, processed, proc_f,
-        final_plane_tab, vpf_tables, pid_o, x_o, y_o, z_o,
+        final_plane_tab, vpf_tables, pid_o, points,
     ):
         """A-GLE cascade, TGR, state update, original-order labels."""
         plane, next_plane = _planes(state, normal, mean, svals, d, fit_n, counts)
@@ -695,50 +697,24 @@ def make_frame_fn(
                 revert_patch[a:b] = revert_ring[ci, : b - a]
 
         # ---- per-point labels in ORIGINAL order (C13): replay the peel
-        # tests and the final distance test against the per-patch tables.
-        # Each R-VPF snapshot's gate folds into a sentinel plane whose
-        # |distance| never passes the peel threshold.
+        # tests and the final distance test against the per-patch tables
+        # (the kernel KL on the card, ops/label_replay_kernel.py). Each
+        # R-VPF snapshot's gate folds into a sentinel plane whose |distance|
+        # never passes the peel threshold.
         code = 2.0 * proc_f + (ground_patch | revert_patch).to(torch.float32)
         vpf_cols = [
             torch.where(t[:, 4:5] > 0.5, t[:, 0:4], sentinel_plane[None, :])
             for t in vpf_tables
         ]
         label_tab = torch.cat([final_plane_tab, code[:, None]] + vpf_cols, dim=1)
-
-        def _replay(pid_b, xb, yb, zb):
-            # a gather (the JAX package's one-hot MXU lookup, ops/onehot.py,
-            # returns the same bits)
-            lk = label_tab[pid_b]
-
-            def _plane_dist(c0):
-                return plane_dist(xb, yb, zb, lk[:, c0], lk[:, c0 + 1],
-                                  lk[:, c0 + 2], lk[:, c0 + 3])
-
-            dist_o = _plane_dist(0)
-            peeled = torch.zeros(pid_b.shape[0], dtype=torch.bool, device=dev)
-            for it in range(len(vpf_tables)):
-                peeled = peeled | (
-                    torch.abs(_plane_dist(5 + 4 * it)) < f32(p.th_dist_v)
-                )
-            return (
-                (lk[:, 4] > 1.5)
-                & ~peeled
-                & (dist_o < f32(p.th_dist))
-                & (lk[:, 4] > 2.5)
-            )
-
-        pid_l = pid_o.to(torch.int64)
-        blk = _REPLAY_BLOCK
-        ground = torch.cat([
-            _replay(pid_l[s:s + blk], x_o[s:s + blk], y_o[s:s + blk], z_o[s:s + blk])
-            for s in range(0, pid_l.shape[0], blk)
-        ])
+        ground, num_ground = label_replay(
+            points, pid_o, label_tab, f32(p.th_dist), f32(p.th_dist_v))
 
         if carries:
             new_state = dataclasses.replace(new_state, plane=next_plane)
         result = FrameResult(
             ground_mask=ground,
-            num_ground=comm.reduce_patches(torch.sum(ground).to(torch.int32)),
+            num_ground=comm.reduce_patches(num_ground),
             patch_mean=mean[:npz],
             patch_normal=normal[:npz],
             patch_svals=svals[:npz],
@@ -844,7 +820,7 @@ def make_frame_fn(
         return _finalize(
             state, normal, mean, svals, d, fit_n, fi.counts, g_count, fi.processed,
             fi.processed.to(torch.float32), final_plane_tab, vpf_tables,
-            fi.patch_id, fi.points[:, 0], fi.points[:, 1], fi.points[:, 2],
+            fi.patch_id, fi.points,
         )
 
     def frame(state: AdaptiveState, points: torch.Tensor, npts):
@@ -916,8 +892,7 @@ def make_frame_fn(
         with record_function("stage_gle_tail"):
             return _finalize(
                 state, carry.normal, carry.mean, carry.svals, carry.d, carry.n, counts,
-                g_count, processed, proc_f, final_plane_tab, vpf_tables, pid_o,
-                points[:, 0], points[:, 1], points[:, 2],
+                g_count, processed, proc_f, final_plane_tab, vpf_tables, pid_o, points,
             )
 
     if fused is False:
