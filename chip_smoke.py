@@ -1263,7 +1263,7 @@ def multi_device_phase(seed, device="cuda") -> dict:
         cfs = _all_captured(model, label) if on_card else list(model._frames.values())
         eager = PatchworkPP(p, capacity=CAPACITY, device=dev, **kw)
         for i, s in enumerate(scans[:frames]):
-            eager._estimate(s, captured=False)
+            eager._run([s], eager._capacity(len(s)), captured=False)
             _same_frame(kept[i], (eager.last_result, eager._state),
                         f"{label} frame {i}, captured vs eager")
         print(f"{label} on the card, captured: {frames} chained frames == eager frames bit "
@@ -2159,7 +2159,7 @@ def main() -> int:
         if fused is False:
             eager = PatchworkPP(p, capacity=CAPACITY, device="cuda", fused=fused)
             for i, s in enumerate(scans[:frames]):
-                eager._estimate(s, captured=False)
+                eager._run([s], eager._capacity(len(s)), captured=False)
                 _same_frame(kept[i], (eager.last_result, eager._state),
                             f"fused=False frame {i}, captured vs eager")
             print(f"fused=False: {frames} captured frames == eager frames bit for bit "

@@ -156,7 +156,7 @@ def main(argv=None) -> int:
     ap.add_argument("--overload", type=float, default=2.0)
     ap.add_argument("--sub", type=int, default=1,
                     help="keep every K-th point (a sparse feed on the fixed-"
-                         "capacity server: the bucketed upload)")
+                         "capacity server: only its rows are copied)")
     ap.add_argument("--capacity", type=int, default=131072)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")

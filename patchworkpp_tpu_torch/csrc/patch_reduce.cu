@@ -57,8 +57,8 @@
 //    which costs a graph node as the launch does.
 //
 // Where a call's time goes on an H100 80GB HBM3 at 700 W (calls back to
-// back; stage builds and clock records, PPK_KR_STAGES / PPK_KR_CLOCKS
-// below, patchworkpp_tpu_torch/kr_stages_bench.py; PERF.md): the two
+// back; measured on builds that stopped after each step and on the fold's
+// clock64() records, PERF.md): the two
 // launches alone ~2.8 us (~3.8 us without the programmatic dependence),
 // the chunk map ~1.7 us, the chunk sums 0.9-3.9 us by their bytes, the
 // fold 1.1 us on the main scan's 10 columns (its map hidden behind launch
@@ -89,28 +89,6 @@ constexpr int kFoldBatch = 16;  // terms of the fold loaded ahead of their adds
 constexpr int kMaxSmem = 232448;  // shared memory a block may have on sm_90 (227 KB)
 constexpr size_t kStaticMapBytes = sizeof(int) * kWarps;  // chunk_map's warp totals
 constexpr unsigned kFull = 0xffffffffu;
-
-// A stage build (patchworkpp_tpu_torch/kr_stages_bench.py) leaves out the
-// later steps of a call to time the earlier ones: 0 launches only (both
-// kernels return at once), 1 adds the chunk map (each warp writes its
-// chunk's row count in place of the sums; the fold writes each patch's
-// chunk count), 2 adds the chunk sums, 3 (the release build) the fold.
-// PPK_KR_NO_PDL launches the fold as a plain launch. PPK_KR_CLOCKS
-// records, for each patch of the fold, its warp's clock64() cycles in the
-// map, the wait for launch 1, the staging and the adds
-// (ppk_kr_clocks reads them). The release build defines none of these.
-#ifndef PPK_KR_STAGES
-#define PPK_KR_STAGES 3
-#endif
-constexpr int kStages = PPK_KR_STAGES;
-#ifdef PPK_KR_CLOCKS
-constexpr int kClockRows = 4096;
-constexpr int kClockCols = 6;  // map, wait, staging, adds, whole warp, chunks
-__device__ long long kr_clocks[kClockRows][kClockCols];
-#define KR_CLOCK(t) const long long t = clock64()
-#else
-#define KR_CLOCK(t)
-#endif
 
 // Each kernel counts its own launches on the card (the grid's first
 // thread adds one), so that a caller can hold the wrappers' count of calls
@@ -205,7 +183,6 @@ __device__ __forceinline__ Chunk my_chunk(const int* __restrict__ start, int num
                                           long long gmax, int* sstart, int* sfirst) {
   // let launch 2 become resident now; it waits for this grid's end itself
   asm volatile("griddepcontrol.launch_dependents;");
-  if (kStages < 1) return Chunk{-1, 0, 0};
   chunk_map(start, num_patches, sstart, sfirst);
   const long long total = min(static_cast<long long>(sfirst[num_patches]), gmax);
   const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -225,10 +202,6 @@ kr_chunk_sums(const float* __restrict__ feats, const int* __restrict__ start, in
   const Chunk ch = my_chunk(start, num_patches, gmax, sstart, sfirst);
   if (ch.g < 0) return;  // warp-uniform; no barrier follows
   const int lane = threadIdx.x & 31;
-  if (kStages < 2) {  // a stage build: the map alone
-    if (lane == 0) partial[static_cast<size_t>(ch.g) * cols] = static_cast<float>(ch.n);
-    return;
-  }
   const int cstride = cols | 1;  // an odd row stride: the tree's reads hit 32 banks
   float* stage = reinterpret_cast<float*>(smem + 2 * (num_patches + 1)) +
                  (threadIdx.x >> 5) * kChunk * cstride;
@@ -301,10 +274,6 @@ kr_moment_sums(const float* __restrict__ qx, const float* __restrict__ qy,
   const Chunk ch = my_chunk(start, num_patches, gmax, smem, smem + num_patches + 1);
   if (ch.g < 0) return;
   const int lane = threadIdx.x & 31;
-  if (kStages < 2) {  // a stage build: the map alone
-    if (lane == 0) partial[static_cast<size_t>(ch.g) * kMomentCols] = static_cast<float>(ch.n);
-    return;
-  }
   // [m, mx, my, mz, mx*mx, mx*my, mx*mz, my*my, my*mz, mz*mz], mx = qx * m,
   // for the lane's rows; +0.0 past the chunk's end
   float v[kMomentCols][4];
@@ -361,34 +330,19 @@ kr_fold(const float* __restrict__ partial, const int* __restrict__ start, int nu
   extern __shared__ int smem[];  // sstart, sfirst (S+1 each)
   count_launch(counter);
   __shared__ __align__(16) float window[kWarps][kFoldWindow + kFoldPad];
-  if (kStages < 1) {  // a stage build: the launch alone
-    asm volatile("griddepcontrol.wait;" ::: "memory");
-    return;
-  }
-  KR_CLOCK(c_entry);
   chunk_map(start, num_patches, smem, smem + num_patches + 1);
   const int* sfirst = smem + num_patches + 1;
-  KR_CLOCK(c_map);
   asm volatile("griddepcontrol.wait;" ::: "memory");  // launch 1's sums are visible
-  KR_CLOCK(c_wait);
   const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (s >= num_patches) return;
   const int lane = threadIdx.x & 31;
   float* win = window[threadIdx.x >> 5];
   const long long lo = sfirst[s];
   const long long hi = min(static_cast<long long>(sfirst[s + 1]), gmax);
-  if (kStages < 3) {  // a stage build: no fold
-    if (lane < cols) out[static_cast<size_t>(s) * cols + lane] = static_cast<float>(hi - lo);
-    return;
-  }
   const int per = kFoldWindow / cols;  // chunks a window
   const long long fend = gmax * cols;
   float acc = 0.0f;
-#ifdef PPK_KR_CLOCKS
-  long long c_stage = 0, c_add = 0;
-#endif
   for (long long g0 = lo; g0 < hi; g0 += per) {
-    KR_CLOCK(w0);
     // the window's run partial[f0, f0 + n) as the 16-byte blocks that hold
     // it (partial is 16-byte aligned, which the entries check), copied as
     // they are by cp.async, one instruction a block, every copy in flight
@@ -408,7 +362,6 @@ kr_fold(const float* __restrict__ partial, const int* __restrict__ start, int nu
     }
     asm volatile("cp.async.wait_all;" ::: "memory");
     __syncwarp();
-    KR_CLOCK(w1);
     // the adds in chunk order, kFoldBatch terms' shared-memory loads ahead
     // of them: the chain waits one load a batch, not one a term
     if (lane < cols) {
@@ -424,19 +377,8 @@ kr_fold(const float* __restrict__ partial, const int* __restrict__ start, int nu
       for (; f < n; f += cols) acc = acc + run[f];
     }
     __syncwarp();
-#ifdef PPK_KR_CLOCKS
-    c_stage += w1 - w0;
-    c_add += clock64() - w1;
-#endif
   }
   if (lane < cols) out[static_cast<size_t>(s) * cols + lane] = acc;
-#ifdef PPK_KR_CLOCKS
-  if (lane == 0 && s < kClockRows) {
-    const long long row[kClockCols] = {c_map - c_entry, c_wait - c_map, c_stage, c_add,
-                                       clock64() - c_entry, hi - lo};
-    for (int k = 0; k < kClockCols; ++k) kr_clocks[s][k] = row[k];
-  }
-#endif
 }
 
 // The dynamic shared memory of a launch: the chunk map, and launch 1's
@@ -473,11 +415,7 @@ int launch_fold(const float* partial, const int* start, int num_patches, int col
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
-#ifdef PPK_KR_NO_PDL
-  cfg.numAttrs = 0;
-#else
   cfg.numAttrs = 1;
-#endif
   rc = cudaLaunchKernelEx(&cfg, kr_fold, partial, start, num_patches, cols, gmax, out, counter);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
@@ -490,15 +428,6 @@ int chunk_grid(long long gmax) {
 }
 
 }  // namespace
-
-#ifdef PPK_KR_CLOCKS
-// The fold's clock rows of the last call, (rows, kClockCols) into `host`.
-extern "C" int ppk_kr_clocks(long long* host, int rows) {
-  const int n = rows < kClockRows ? rows : kClockRows;
-  return static_cast<int>(cudaMemcpyFromSymbol(host, kr_clocks,
-                                               sizeof(long long) * kClockCols * n));
-}
-#endif
 
 // The kernels' own launch counts (kr_chunk_sums, kr_moment_sums, kr_fold in
 // the generic mode, kr_fold in the moment mode) into host (4,), then zeroed

@@ -7,30 +7,28 @@ the adaptive state stays there between frames, in static buffers that each
 frame updates in place. On the card the frame of every engine, chunked or
 not, is a captured CUDA graph, one per (RNR setting, capacity), as the JAX
 facade jits one (``graphs.py``); the CPU runs the same static-buffer step
-eagerly. A single scan is uploaded as the 8192-row bucket that holds its
-rows and zero-extended to the capacity on the device, and its result comes
-back to the host in one device -> host copy of one packed buffer.
+eagerly.
 
-A sequence runs as a pipeline, scan by scan, through buffers kept across
-calls (:class:`_Slots`; page-locked on the card, so that neither copy
-waits for the host): each scan is staged into its host slot, copied to its
-device slot, replayed, and its packed result copied back into its host
-readback slot behind an event, all without waiting; then the host waits on
-each scan's event in order and unpacks it. So while the card replays scan
-i, the host stages scan i+1, and the early scans are unpacked while the
-later ones run. On the CPU the same loop runs synchronously.
+Scans reach the frame through one transport, a pipeline over buffers kept
+across calls (:class:`_Slots`; page-locked on the card, so that neither
+copy waits for the host): each scan is staged into its host slot, copied
+to its device slot, replayed, and its packed result (one buffer) copied
+back into its host readback slot behind an event, all without waiting;
+then the host waits on each scan's event in order and unpacks it. So while
+the card replays scan i, the host stages scan i+1, and the early scans are
+unpacked while the later ones run. :meth:`PatchworkPP.estimate_ground` is
+a one-scan pass of it. On the CPU the same loop runs synchronously.
 
 Each step records spans (``utils/profiling.py``): ``facade.step`` (whose
 duration is ``time_taken_s``) and inside it one each of ``facade.stage``
-(the host staging), ``facade.upload`` (host -> device copy, and for a
-single scan the zero-extension), the frame's ``dispatch.launch``,
-``facade.readback`` (the packing, the copy back and the host's wait for
-the device) and ``facade.unpack`` (the host's unpacking and index
-building); in a sequence each is its phase's time summed over the scans
-(``profiling.phase``). On the card each replay's device time is a
-``frame.span``, and ``facade.overlapped_scans`` counts the scans staged
-while the step's previous scan was still on the card. Where the frame
-carries planes across empty patches (``num_min_pts`` 0,
+(the host staging), ``facade.upload`` (the host -> device copy), the
+frame's ``dispatch.launch``, ``facade.readback`` (the packing, the copy
+back and the host's wait for the device) and ``facade.unpack`` (the host's
+unpacking and index building), each its phase's time summed over the
+step's scans (``profiling.phase``). On the card each replay's device time
+is a ``frame.span``, and ``facade.overlapped_scans`` counts the scans
+staged while the step's previous scan was still on the card. Where the
+frame carries planes across empty patches (``num_min_pts`` 0,
 ``pipeline.carry_planes``), its count of inherited planes rides at the end
 of the packed readback, and the counter ``frame.inherited_planes`` sums it
 over the scans unpacked.
@@ -73,24 +71,21 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(-1)
 
 
-def _pack_result(res: FrameResult, weights: Optional[torch.Tensor] = None,
+def _pack_result(res: FrameResult, weights: torch.Tensor,
                  inherited: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Everything SegmentationResult needs as ONE uint8 buffer on the
     device, in the JAX package's byte layout: the ground mask bit-packed 8
     labels a byte (little bit order, the flattened mask padded to a multiple
     of 8), ``num_ground`` as int32, the patch means and normals as f32
     bytes and the processed flags one byte each. Leading batch dimensions
-    (a sequence's results) are flattened into each field. ``weights``: the
-    bit weights already on the device (made here otherwise, by a host ->
-    device copy that waits for the stream). ``inherited``: a frame's 0-d
+    are flattened into each field. ``weights``: the bit weights
+    (``_BIT_WEIGHTS``) as int32 on the device. ``inherited``: a frame's 0-d
     int32 count of inherited planes, appended as 4 more bytes
     (:func:`_unpack_inherited`)."""
     flat = res.ground_mask.reshape(-1)
     pad = (-flat.shape[0]) % 8
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    if weights is None:
-        weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=flat.device)
     packed = (flat.reshape(-1, 8).to(torch.int32) * weights).sum(dim=1)
     extra = [] if inherited is None else [_bytes(inherited.reshape(1))]
     return torch.cat([
@@ -131,15 +126,6 @@ def _unpack_inherited(buf: np.ndarray) -> int:
     return int(buf[-4:].copy().view(np.int32)[0])
 
 
-def _zero_extend(a: torch.Tensor, cap: int) -> torch.Tensor:
-    """Zero-extend the row axis (axis -2) of ``a`` to ``cap`` on its device:
-    the bucketed upload of a frame ((1, rows, 4))."""
-    if a.shape[-2] == cap:
-        return a
-    pad = a.new_zeros(a.shape[:-2] + (cap - a.shape[-2], a.shape[-1]))
-    return torch.cat([a, pad], dim=-2)
-
-
 def _copy_rows(dst: torch.Tensor, src: torch.Tensor, rows: int, non_blocking: bool) -> None:
     """Copy the leading ``rows`` rows of ``src`` into ``dst`` (a slot's
     upload)."""
@@ -147,8 +133,8 @@ def _copy_rows(dst: torch.Tensor, src: torch.Tensor, rows: int, non_blocking: bo
 
 
 class _Slots:
-    """The sequence path's buffers, kept by the facade across calls and
-    grown to the longest run and the largest capacity it meets: a (B,
+    """The facade's transport, one set for both entries, kept across calls
+    and grown to the longest run and the largest capacity it meets: a (B,
     rows, 4) float32 host staging buffer and a device buffer of the same
     shape, a (B, L) uint8 host readback buffer for the packed results and,
     on the card, one event a slot. On the card the host buffers are
@@ -275,7 +261,7 @@ class PatchworkPP:
         # eagerly
         self._capture = device.type == "cuda"
         self._state = init_state(self.params, device)
-        self._slots: Optional[_Slots] = None  # the sequence path's buffers
+        self._slots: Optional[_Slots] = None  # the transport's buffers
         self.last_result: Optional[FrameResult] = None
 
     # ------------------------------------------------------------------ state
@@ -357,54 +343,17 @@ class PatchworkPP:
         # refuses RNR without 4 columns (patchworkpp.cpp:379)
         return self.params.enable_RNR and cloud.shape[1] >= 4
 
-    def _upload(self, clouds, cap: int) -> torch.Tensor:
-        """Stack ``clouds`` zero-padded into the 8192-row bucket that holds
-        the longest, upload it and zero-extend it to ``cap`` on the device
-        (padding rows are zeros either way: the same input, fewer bytes
-        moved when the scans sit below the capacity)."""
-        with profiling.span("facade.stage", scans=len(clouds), host_only=True):
-            rows = min(cap, _round_capacity(max(max(c.shape[0] for c in clouds), 1)))
-            stack = np.zeros((len(clouds), rows, 4), np.float32)
-            for i, c in enumerate(clouds):
-                stack[i, : c.shape[0], : c.shape[1]] = c
-        with profiling.span("facade.upload", scans=len(clouds)):
-            return _zero_extend(torch.from_numpy(stack).to(self.device), cap)
-
-    def _readback(self, res: FrameResult, inherited: Optional[torch.Tensor]) -> np.ndarray:
-        """The one device -> host copy of a frame's results, as the packed
-        host buffer that :func:`_unpack_result` reads."""
-        mask = res.ground_mask
-        with profiling.span("facade.readback", scans=mask.shape[0] if mask.dim() > 1 else 1):
-            return _pack_result(res, inherited=inherited).cpu().numpy()
-
     def estimate_ground(self, cloud: np.ndarray) -> SegmentationResult:
         """Segment one scan. ``cloud`` is (N, 3) or (N, 4) float32."""
-        return self._estimate(cloud)
-
-    def _estimate(self, cloud: np.ndarray, captured: Optional[bool] = None
-                  ) -> SegmentationResult:
         cloud = self._check_cloud(cloud)
         n = cloud.shape[0]
-        cap = self._capacity(n)
-        cf = self._frame(self._rnr(cloud), cap, captured)
-        step = profiling.span("facade.step", timed=True)
-        with step:
-            x = self._upload([cloud], cap)[0]
-            res = cf(x, n)
-            inherited = cf.inherited_planes
-            buf = self._readback(res, inherited)
-            self.last_result = res
-            with profiling.span("facade.unpack", host_only=True):
-                mask, num_ground, means, normals, proc = _unpack_result(buf, res)
-                out = _result(mask, means, normals, proc, n)
-                if inherited is not None:
-                    profiling.count("frame.inherited_planes", _unpack_inherited(buf))
+        (out,), num_ground = self._run([cloud], self._capacity(n))
         if self.params.verbose:
             print(
-                f"patchworkpp_tpu_torch: {n} pts -> {int(num_ground)} ground "
-                f"in {step.seconds * 1e3:.2f} ms (sensor_height={self.sensor_height:.4f})"
+                f"patchworkpp_tpu_torch: {n} pts -> {num_ground} ground "
+                f"in {out.time_taken_s * 1e3:.2f} ms (sensor_height={self.sensor_height:.4f})"
             )
-        return out._replace(time_taken_s=step.seconds)
+        return out
 
     def estimate_ground_sequence(self, clouds) -> list:
         """Segment an ordered batch of scans, the state threaded through
@@ -426,10 +375,10 @@ class PatchworkPP:
         run: list = []
         for c in clouds:
             if run and self._rnr(c) != self._rnr(run[0]):
-                out.extend(self._run_sequence(run, cap))
+                out.extend(self._run(run, cap)[0])
                 run = []
             run.append(c)
-        out.extend(self._run_sequence(run, cap))
+        out.extend(self._run(run, cap)[0])
         return out
 
     def _slots_for(self, b: int, cap: int) -> _Slots:
@@ -439,8 +388,14 @@ class PatchworkPP:
                                  max(cap, old.host.shape[1]) if old else cap, self.device)
         return self._slots
 
-    def _run_sequence(self, clouds, cap: int) -> list:
-        cf = self._frame(self._rnr(clouds[0]), cap)
+    def _run(self, clouds, cap: int, captured: Optional[bool] = None):
+        """A uniform-RNR run of scans at capacity ``cap``, the state threaded
+        through them, as the pipeline of the module's docstring. Returns
+        the results (``time_taken_s`` the step's seconds on the first, 0.0
+        on the rest) and the last scan's ground count from its packed
+        readback. ``captured`` False runs the profiled eager frame
+        (:meth:`_frame`)."""
+        cf = self._frame(self._rnr(clouds[0]), cap, captured)
         inherited = cf.inherited_planes
         b = len(clouds)
         npts = [c.shape[0] for c in clouds]
@@ -451,7 +406,6 @@ class PatchworkPP:
             profiling.phase("facade.unpack", host_only=True))
         step = profiling.span("facade.step", scans=b, timed=True)
         with step:
-            out = None
             try:
                 for i, (cloud, n) in enumerate(zip(clouds, npts)):
                     with stage:
@@ -461,26 +415,27 @@ class PatchworkPP:
                     with upload:
                         x = slots.upload(i, n, cap)
                     with launch:
-                        out, res = cf.scan(out, b, i, x, n)
+                        res = cf.run(x, n)
                     with readback:
                         slots.read(i, _pack_result(res, slots.weights, inherited))
+                with launch:  # a copy: the next replay overwrites the static outputs
+                    self.last_result = FrameResult(*(f.clone() for f in res))
             except BaseException:
                 slots.drain()
                 raise
-            self.last_result = FrameResult(*(f[-1] for f in out))
             results = []
             for i, n in enumerate(npts):
                 with readback:
                     buf = slots.wait(i)
                 with unpack:
-                    mask, _, means, normals, proc = _unpack_result(buf, res)
+                    mask, num_ground, means, normals, proc = _unpack_result(buf, res)
                     results.append(_result(mask, means, normals, proc, n))
                     if inherited is not None:
                         profiling.count("frame.inherited_planes", _unpack_inherited(buf))
             for phase in (stage, upload, launch, readback, unpack):
                 phase.done(b)
         results[0] = results[0]._replace(time_taken_s=step.seconds)
-        return results
+        return results, int(num_ground)
 
     # ------------------------------------------------------------- profiling
 
@@ -498,11 +453,12 @@ class PatchworkPP:
         from patchworkpp_tpu_torch.utils.roofline import format_report, profile_frames
 
         cloud = self._check_cloud(cloud)
-        self._estimate(cloud, captured=False)  # builds and warms outside the trace
+        cap = self._capacity(cloud.shape[0])
+        self._run([cloud], cap, captured=False)  # builds and warms outside the trace
 
         def run():
             for _ in range(frames):
-                self._estimate(cloud, captured=False)  # ends in its readback (a sync)
+                self._run([cloud], cap, captured=False)  # ends in its readback's wait
 
         stages, ops = profile_frames(run)
         if self.params.verbose:

@@ -55,14 +55,9 @@ def max_chunks(num_rows: int, num_patches: int) -> int:
 
 @functools.lru_cache(maxsize=1)
 def build() -> ctypes.CDLL:
-    """Compile csrc/patch_reduce.cu (once per source content) and load it."""
-    return build_from(SOURCE)
-
-
-def build_from(source) -> ctypes.CDLL:
-    """Compile ``source`` (csrc/patch_reduce.cu, or a file that includes it
-    after defining a stage build's switches) and declare its entries."""
-    lib = nvcc.build(source, "ppk_patch_reduce", ARGTYPES)
+    """Compile csrc/patch_reduce.cu (once per source content), load it and
+    declare its entries."""
+    lib = nvcc.build(SOURCE, "ppk_patch_reduce", ARGTYPES)
     lib.ppk_patch_moments.argtypes = list(MOMENT_ARGTYPES)
     lib.ppk_patch_moments.restype = ctypes.c_int
     lib.ppk_patch_reduce_max_cols.argtypes = []

@@ -11,8 +11,8 @@ capability:
   three publishers;
 - a bounded input queue + worker thread taking the role of the rclcpp
   executor delivering messages;
-- one fixed capacity: each message is uploaded as its 8192-row bucket and
-  zero-extended on the device, the adaptive state stays on the device;
+- one fixed capacity: each message's own rows are copied into the facade's
+  device slot of that capacity, the adaptive state stays on the device;
 - like the reference server, RNR is disabled unless the feed provides
   intensity (GroundSegmentationServer.cpp:47 forces enable_RNR=false because
   PointCloud2 intensity isn't wired through).

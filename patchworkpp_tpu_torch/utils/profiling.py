@@ -35,7 +35,7 @@ A span that encloses device work never opens one: the range would get a
 device-side span under its name, which a trace reader would take for a
 kernel.
 
-A step whose scans interleave their phases (the facade's sequence path:
+A step whose scans interleave their phases (the facade's pipeline:
 scan i+1 staged while scan i runs on the card) times each phase with
 :func:`phase`, entered once a scan, and records its sum as one span of the
 step.

@@ -1,7 +1,8 @@
 """The port's PatchworkPP facade, finished: the JAX byte layout of the packed
-readback, the bucketed upload, estimate_ground_sequence as one sequence call
-and one readback per uniform-RNR run, profile_stages, the chunks= switch,
-and the per-stage aggregation of utils/roofline.py.
+readback, the bucketed upload, estimate_ground_sequence as one pipelined
+step and one readback span per uniform-RNR run, the slots that both entries
+share, profile_stages, the chunks= switch, and the per-stage aggregation of
+utils/roofline.py.
 
 Inputs are tests/test_fuzz_parity.py:synth_cloud at capacity 8192, PyTorch
 on one thread. The sequence must equal the port's own frame loop bit for
@@ -61,7 +62,8 @@ def _random_result(rng, lead, rows, npatch=504):
 def test_pack_matches_jax_bytes_and_round_trips(lead):
     """An odd row count (4100 % 8 = 4) takes the bit-pad branch."""
     arrs, port, ref = _random_result(np.random.default_rng(len(lead)), lead, 4100)
-    buf = tfacade._pack_result(port).numpy()
+    weights = torch.tensor(tfacade._BIT_WEIGHTS, dtype=torch.int32)
+    buf = tfacade._pack_result(port, weights).numpy()
     np.testing.assert_array_equal(buf, np.asarray(j_pack(ref)))
     mask, ng, mean, normal, proc = tfacade._unpack_result(buf, port)
     np.testing.assert_array_equal(mask, arrs["ground_mask"])
@@ -89,37 +91,32 @@ def test_packed_readback_equals_device_result():
     np.testing.assert_array_equal(res.normals, dev.patch_normal.numpy()[proc])
 
 
-def test_bucketed_upload_equals_tight_capacity(monkeypatch):
-    """A fixed capacity of 32768 uploads only the 8192-row bucket of a
-    ~3.7k-point scan and zero-extends it on the device; the sequence
-    uploads each scan's own rows into its 32768-row device slot: the frame
-    and the sequence equal a tight capacity's."""
-    seen, rows = [], []
-    extend, copy_rows = tfacade._zero_extend, tfacade._copy_rows
-
-    def spy(a, cap):
-        seen.append((tuple(a.shape), cap))
-        return extend(a, cap)
+@pytest.mark.parametrize("sequence", [False, True], ids=["frame", "sequence"])
+def test_bucketed_upload_equals_tight_capacity(monkeypatch, sequence):
+    """A fixed capacity of 32768 copies only each ~3.7k-point scan's own
+    rows into its 32768-row device slot, one scan or a sequence: the
+    results and the state equal a tight capacity's."""
+    rows = []
+    copy_rows = tfacade._copy_rows
 
     def spy_rows(dst, src, n, non_blocking):
         rows.append((tuple(dst.shape), n))
         return copy_rows(dst, src, n, non_blocking)
 
-    monkeypatch.setattr(tfacade, "_zero_extend", spy)
     monkeypatch.setattr(tfacade, "_copy_rows", spy_rows)
-    clouds = _clouds(3, 2)
+    clouds = _clouds(3, 2 if sequence else 1)
+
+    def run(m):
+        return m.estimate_ground_sequence(clouds) if sequence else [m.estimate_ground(clouds[0])]
+
     wide = PatchworkPP(capacity=32768, device="cpu")
     tight = PatchworkPP(capacity=CAP, device="cpu")
-    _assert_results_equal(wide.estimate_ground(clouds[0]), tight.estimate_ground(clouds[0]),
-                          "bucketed frame")
-    assert seen[0] == ((1, CAP, 4), 32768)
-    wide.reset()
-    tight.reset()
-    for a, b in zip(wide.estimate_ground_sequence(clouds),
-                    tight.estimate_ground_sequence(clouds)):
-        _assert_results_equal(a, b, "bucketed sequence")
-    assert rows[:2] == [((32768, 4), len(c)) for c in clouds]
-    assert wide.sensor_height == tight.sensor_height
+    got = run(wide)
+    assert rows == [((32768, 4), len(c)) for c in clouds]
+    for i, (a, b) in enumerate(zip(got, run(tight))):
+        _assert_results_equal(a, b, f"bucketed scan {i}")
+    for k, v in tight.state.to_numpy().items():
+        np.testing.assert_array_equal(wide.state.to_numpy()[k], v, err_msg=k)
 
 
 def test_sequence_equals_frame_loop_and_jax():
@@ -172,12 +169,15 @@ def _padded(cloud, cap=CAP):
     return out
 
 
-def test_pipelined_slots_hold_no_stale_rows(monkeypatch):
-    """Three sequence calls on one facade reuse its slots with shorter
-    scans after longer ones, and a 3-column scan where a 4-column one was:
-    every frame's input is its scan zero-padded to the capacity, and the
-    results, the state and last_result equal estimate_ground's scan by
-    scan, bit for bit."""
+@pytest.mark.parametrize("interleaved", [False, True], ids=["sequence", "interleaved"])
+def test_pipelined_slots_hold_no_stale_rows(monkeypatch, interleaved):
+    """Three calls on one facade reuse its slots with shorter scans after
+    longer ones, and a 3-column scan where a 4-column one was: three
+    sequence calls, or (interleaved) a sequence call, the next call's
+    scans one estimate_ground each through slot 0, then a sequence call
+    again. Every frame's input is its scan zero-padded to the capacity,
+    and the results, the state and last_result equal a fresh facade's
+    estimate_ground scan by scan, bit for bit."""
     base = _clouds(7, 6)
     calls = [
         [base[0], base[1][: len(base[1]) // 3], base[2]],
@@ -196,7 +196,10 @@ def test_pipelined_slots_hold_no_stale_rows(monkeypatch):
     loop = PatchworkPP(capacity=CAP, device="cpu")
     for k, call in enumerate(calls):
         inputs.clear()
-        got = seq.estimate_ground_sequence(call)
+        if interleaved and k == 1:
+            got = [seq.estimate_ground(c) for c in call]
+        else:
+            got = seq.estimate_ground_sequence(call)
         assert len(inputs) == len(call)
         for i, (x, c) in enumerate(zip(inputs, call)):
             np.testing.assert_array_equal(x, _padded(c), err_msg=f"call {k} input {i}")
